@@ -1,0 +1,93 @@
+"""1-D ConvNeXt backbone: the encoder, the decoder and the WaveNeXt trunk.
+
+Port of `optispeech_tpu/models/modules/convnext.py`, inference only (no drop
+path). (B, T, C) in and out. With `fused`, each block runs as one call of
+`ops.fused_convnext.convnext_block_fused`: the CUDA kernel on the card, its
+twin on the CPU. Submodule names follow the reference's torch keys
+(`convnext.{i}.dwconv.weight`, `final_layer_norm.weight`).
+"""
+
+from typing import Optional
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from ...ops.fused_convnext import convnext_block_fused
+from .core import conv_btc
+
+
+class ConvNeXtBlock(nn.Module):
+    """dwconv(k=7) -> LN -> Linear(C->I) -> exact GELU -> Linear(I->C)
+    -> layer scale -> residual."""
+
+    def __init__(self, dim: int, intermediate_dim: int,
+                 layer_scale_init_value: Optional[float] = None):
+        super().__init__()
+        self.dwconv = nn.Conv1d(dim, dim, 7, padding=3, groups=dim)
+        self.norm = nn.LayerNorm(dim, eps=1e-6)
+        self.pwconv1 = nn.Linear(dim, intermediate_dim)
+        self.pwconv2 = nn.Linear(intermediate_dim, dim)
+        if layer_scale_init_value is not None and layer_scale_init_value > 0:
+            self.gamma = nn.Parameter(torch.full((dim,), float(layer_scale_init_value)))
+        else:
+            self.gamma = None
+        self._fused_cache = None
+
+    def forward(self, x, fused: bool = False):
+        if fused and self.gamma is not None:
+            return convnext_block_fused(x, *self.fused_params())
+        h = conv_btc(self.dwconv, x)
+        h = self.pwconv2(F.gelu(self.pwconv1(self.norm(h)), approximate="none"))
+        if self.gamma is not None:
+            h = self.gamma.to(h.dtype) * h
+        return x + h
+
+    def fused_params(self):
+        """The block's parameters in the kernel's layout: dw (7, C), w1 (C, I)
+        and w2 (I, C) in bf16, the rest in f32, all contiguous.
+
+        Computed once and kept on the module; rebuilt when a parameter moves
+        or is written in place (its storage or version changes)."""
+        params = (self.dwconv.weight, self.dwconv.bias, self.norm.weight, self.norm.bias,
+                  self.pwconv1.weight, self.pwconv1.bias, self.pwconv2.weight,
+                  self.pwconv2.bias, self.gamma)
+        key = tuple((p.data_ptr(), p._version) for p in params)
+        if self._fused_cache is None or self._fused_cache[0] != key:
+            with torch.no_grad():
+                f32 = lambda p: p.detach().float().contiguous()  # noqa: E731
+                bf16 = lambda p: p.detach().t().to(torch.bfloat16).contiguous()  # noqa: E731
+                prepared = (
+                    f32(self.dwconv.weight[:, 0, :].t()), f32(self.dwconv.bias),
+                    f32(self.norm.weight), f32(self.norm.bias),
+                    bf16(self.pwconv1.weight), f32(self.pwconv1.bias),
+                    bf16(self.pwconv2.weight), f32(self.pwconv2.bias), f32(self.gamma),
+                )
+            self._fused_cache = (key, prepared)
+        return self._fused_cache[1]
+
+
+class ConvNeXtBackbone(nn.Module):
+    """Stack of ConvNeXt blocks, each followed by the keep-mask, then a
+    final LayerNorm. Layer scale is 1/num_layers unless given."""
+
+    def __init__(self, dim: int, intermediate_dim: int = 1024, num_layers: int = 4,
+                 layer_scale_init_value: Optional[float] = None, fused_pallas: bool = False):
+        super().__init__()
+        lsiv = layer_scale_init_value or 1.0 / num_layers
+        self.convnext = nn.ModuleList(
+            [ConvNeXtBlock(dim, intermediate_dim, lsiv) for _ in range(num_layers)]
+        )
+        self.final_layer_norm = nn.LayerNorm(dim, eps=1e-6)
+        # module-level fused default (the decoder), OR'd with the call's `fused`
+        self.fused_pallas = fused_pallas
+
+    def forward(self, x, padding_mask=None, fused: bool = False):
+        """padding_mask: (B, T) bool, True on PAD positions."""
+        fused = fused or self.fused_pallas
+        keep = None if padding_mask is None else (~padding_mask)[:, :, None].to(x.dtype)
+        for block in self.convnext:
+            x = block(x, fused=fused)
+            if keep is not None:
+                x = x * keep
+        return self.final_layer_norm(x)

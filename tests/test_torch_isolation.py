@@ -1,0 +1,119 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, its
+weight bridge consumes the whole JAX tree but the training-only
+`alignment_module`, its keys are the reference's torch keys, and its entry
+points do not fall back to the CPU unasked."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from torch_parity import build_pair, params_np, small_config, to_torch_config
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import optispeech_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "optispeech_tpu"))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    n_modules = int(proc.stdout.split()[0])
+    assert n_modules >= 20  # every module of the package was imported
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return build_pair(small_config(num_speakers=3, languages=("en-us", "en-gb")))
+
+
+def test_bridge_consumes_every_leaf_but_alignment_module(pair):
+    from optispeech_tpu_torch.compat.from_jax import state_dict_from_jax_params
+
+    japi, tapi = pair
+    cfg = to_torch_config(japi.cfg).generator
+    params = params_np(japi.params)
+    assert "alignment_module" in params
+    sd = state_dict_from_jax_params(params, cfg)
+    assert set(sd) == set(tapi.generator.state_dict())
+    # without the skipped subtree the result is the same
+    rest = {k: v for k, v in params.items() if k != "alignment_module"}
+    assert set(state_dict_from_jax_params(rest, cfg)) == set(sd)
+    # a leaf the bridge does not know is an error, not silently dropped
+    stray = {**params, "vocoder": {**params["vocoder"], "extra": {"kernel": np.zeros(3)}}}
+    with pytest.raises(KeyError, match="not consumed"):
+        state_dict_from_jax_params(stray, cfg)
+    # so is a missing one
+    short = {**params, "decoder": {k: v for k, v in params["decoder"].items() if k != "block_1"}}
+    with pytest.raises(KeyError, match="lack"):
+        state_dict_from_jax_params(short, cfg)
+
+
+def test_state_dict_keys_are_the_reference_torch_keys(pair):
+    """The JAX package's reference-checkpoint importer reads the port's state
+    dict as if it were a reference checkpoint and rebuilds the JAX tree."""
+    import jax
+
+    from optispeech_tpu.compat.torch_import import convert_torch_generator_state_dict
+
+    japi, tapi = pair
+    ref = params_np(japi.params)
+    sd = {k: v.numpy() for k, v in tapi.generator.state_dict().items()}
+    # the port has no alignment module (training); hand the importer JAX's
+    for name, conv in ref.pop("alignment_module").items():
+        sd[f"alignment_module.{name}.weight"] = conv["kernel"].transpose(2, 1, 0)
+        sd[f"alignment_module.{name}.bias"] = conv["bias"]
+    rebuilt = convert_torch_generator_state_dict(sd, japi.cfg.generator)
+    del rebuilt["alignment_module"]
+    assert jax.tree_util.tree_structure(rebuilt) == jax.tree_util.tree_structure(ref)
+    for a, b in zip(jax.tree_util.tree_leaves(rebuilt), jax.tree_util.tree_leaves(ref)):
+        np.testing.assert_array_equal(np.asarray(a).reshape(b.shape), b)
+
+
+def test_entry_points_need_a_device_when_cuda_is_absent(pair, monkeypatch):
+    from optispeech_tpu_torch.models.optispeech import OptiSpeech
+
+    japi, _ = pair
+    cfg = to_torch_config(japi.cfg)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        OptiSpeech(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        OptiSpeech.load_from_jax_params(cfg, params_np(japi.params))
+    assert OptiSpeech(cfg, device="cpu").device.type == "cpu"
+
+
+def test_seeded_init_is_reproducible_and_flax_like(pair):
+    from optispeech_tpu_torch.models.optispeech import OptiSpeech
+
+    japi, _ = pair
+    cfg = to_torch_config(japi.cfg)
+    a = OptiSpeech(cfg, seed=3, device="cpu").generator.state_dict()
+    b = OptiSpeech(cfg, seed=3, device="cpu").generator.state_dict()
+    c = OptiSpeech(cfg, seed=4, device="cpu").generator.state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert not torch.equal(a["encoder.convnext.0.pwconv1.weight"],
+                           c["encoder.convnext.0.pwconv1.weight"])
+    # the distributions flax draws from: truncated normal 0.02, layer scale
+    # 1/num_layers, token table std dim**-0.5, zero biases
+    w = a["vocoder.backbone.convnext.0.pwconv1.weight"]
+    assert w.abs().max() <= 0.04 and 0.015 < float(w.std()) < 0.02
+    assert torch.all(a["decoder.convnext.1.gamma"] == 0.5)
+    assert abs(float(a["text_embedding.embed_tokens.weight"].std()) - 32 ** -0.5) < 0.01
+    assert torch.all(a["vocoder.head.linear_1.bias"] == 0)
