@@ -16,7 +16,18 @@ Phases, each of which fails the run on any error:
      synthesise_on_device at bench.py's shape (batch 32, 120 tokens,
      d_factor 8, 1792 frames); the kernel must launch 12 times per decode;
   5. cross-device: the same weights on the card and on the CPU (where the
-     block runs its twin), batch 2 at 256 frames: equal durations, close wav.
+     block runs its twin), batch 2 at 256 frames: equal durations, close wav;
+  6. MAS kernel check: the wavefront MAS kernel against its plain twin at
+     B=128, T_feats=768, T_text=192 (lengths from a seed), (2, 43, 23) and a
+     one-token item: durations exactly equal, bin loss and its gradient
+     close; then its time beside its bound and the twin's;
+  7. training at full width: the flagship config's GAN train step (random
+     weights, seed 0, D from the start) on a batch of 128 at 192 tokens and
+     768 frames with host-sampled segments; 1 warm-up and 3 timed steps; the
+     MAS kernel must launch once per step and the fused block never;
+  8. training cross-device: one step with no dropout on the card and on the
+     CPU (the MAS twin), batch 4 at 32 tokens and 128 frames: equal
+     durations, every log close.
 Prints the kernels' JSON line and the card line, and as its last line
 {"ok": true, "device": {...}}. Without a card, or without the repo beside
 it, it exits non-zero and prints no result.
@@ -39,6 +50,10 @@ PEAK_BYTES_PER_S = 3.35e12
 ATOL = 3e-3  # bf16 operands, f32 accumulation, other summation order
 BF16_RTOL = 2 * 2.0 ** -7  # plus two roundings of a bf16 output
 WAV_ATOL = 2e-3  # card (kernel) against CPU (twin), see phase 5
+PEAK_F32_FLOPS = 67e12  # non-tensor float32 (NVIDIA data sheet)
+MAS_SHAPE = (128, 768, 192)  # (B, T_feats, T_text): the phase-7 training batch
+MAS_BIN_RTOL, MAS_GRAD_ATOL = 1e-5, 1e-6  # tests/test_pallas_mas.py:49-54
+STEP_LOG_RTOL = 1e-3  # card against CPU, float32 with TF32 off, see phase 8
 SENTENCE = ("The birch canoe slid on the smooth planks. "
             "Glue the sheet to the dark blue background.")
 WIDTHS = {"decoder": (256, 1024), "trunk": (384, 1152)}
@@ -170,9 +185,10 @@ def bench_inputs():
                                                 e_factor=1.0)
 
 
-def main_path(fc, api):
-    """Returns the kernel's launch count over the main path's runs."""
+def main_path(fc, mas, api):
+    """Returns the fused block's launch count over the main path's runs."""
     fc.convnext_block_fused.launches = 0
+    mas.viterbi_decode.launches = 0
     inputs = api.prepare_input(SENTENCE)
     out = api.synthesise(inputs)
     decodes = 1
@@ -200,6 +216,7 @@ def main_path(fc, api):
         decodes += 1
     launches = fc.convnext_block_fused.launches
     assert launches == 12 * decodes, f"expected {12 * decodes} launches, got {launches}"
+    assert mas.viterbi_decode.launches == 0, "synthesis launched the MAS kernel"
     wav = o["wav"]
     assert wav.shape == (BENCH["batch"], n_frames * api.hop_length)
     assert bool(torch.isfinite(wav).all()) and o["wav_pcm16"].dtype == torch.int16
@@ -231,12 +248,203 @@ def cross_device(api):
     assert wav_diff <= WAV_ATOL, f"wav differs between card and CPU by {wav_diff}"
 
 
+def mas_lengths(rng, b, t_feats, t_text):
+    """Text lengths in [T/2, T] and frame lengths in [F/2, F]."""
+    tl = rng.integers(t_text // 2, t_text + 1, b)
+    fl = rng.integers(t_feats // 2, t_feats + 1, b)
+    return tl, fl
+
+
+def check_mas(mas, device):
+    rng = np.random.default_rng(0)
+    cases = {"training batch": (*MAS_SHAPE, None), "odd": (2, 43, 23, None),
+             "one token": (3, 20, 9, ([1, 9, 4], [3, 20, 1]))}
+    worst = {"durations": 0.0, "bin_loss_rel": 0.0, "grad": 0.0}
+    for name, (b, t_feats, t_text, lengths) in cases.items():
+        lp = np.log(rng.dirichlet(np.ones(t_text), size=(b, t_feats)) + 1e-8).astype(np.float32)
+        tl, fl = lengths if lengths else mas_lengths(rng, b, t_feats, t_text)
+        lp, tl, fl = (torch.as_tensor(np.asarray(a), device=device) for a in (lp, tl, fl))
+        x, y = lp.clone().requires_grad_(True), lp.clone().requires_grad_(True)
+        ds, bl = mas.viterbi_decode(x, tl, fl)
+        (grad,) = torch.autograd.grad(bl, x)
+        torch.cuda.synchronize()
+        ds_ref, bl_ref = mas.viterbi_decode_reference(y, tl, fl)
+        (grad_ref,) = torch.autograd.grad(bl_ref, y)
+        d_ds = float((ds - ds_ref).abs().max())
+        d_bl = abs(float(bl) - float(bl_ref)) / abs(float(bl_ref))
+        d_grad = float((grad - grad_ref).abs().max())
+        ok = d_ds == 0.0 and d_bl <= MAS_BIN_RTOL and d_grad <= MAS_GRAD_ATOL
+        print(f"  {name:15s} B={b} T_feats={t_feats} T_text={t_text}: durations max|diff| "
+              f"{d_ds:.1f}, bin loss rel diff {d_bl:.2e} (rtol {MAS_BIN_RTOL}), grad max|diff| "
+              f"{d_grad:.2e} (atol {MAS_GRAD_ATOL}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"MAS kernel disagrees with its twin on `{name}`")
+        worst = {k: max(worst[k], v) for k, v in
+                 zip(worst, (d_ds, d_bl, d_grad))}
+    return worst
+
+
+def time_mas(mas, device):
+    """Kernel and twin times at the training batch's shape; the bound counts
+    the valid region each item's lengths leave (the kernel reads no more)."""
+    b, t_feats, t_text = MAS_SHAPE
+    rng = np.random.default_rng(1)
+    lp = np.log(rng.dirichlet(np.ones(t_text), size=(b, t_feats)) + 1e-8).astype(np.float32)
+    tl, fl = mas_lengths(rng, b, t_feats, t_text)
+    cells = int((tl * fl).sum())
+    lp_d, tl_d, fl_d = (torch.as_tensor(np.asarray(a), device=device) for a in (lp, tl, fl))
+    ms = time_ms(lambda: mas.mas_durations(lp_d, tl_d, fl_d), iters=50)
+    plain_ms = time_ms(lambda: mas.viterbi_decode_reference(lp_d, tl_d, fl_d), iters=2, repeats=3)
+    nbytes = 4 * cells + 4 * b * t_text + 8 * b  # valid log-probs in, durations out, lengths
+    bound_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    bound_ops = 2 * cells / PEAK_F32_FLOPS * 1e3  # one max and one add a cell
+    row = {"shape": f"B={b} T_feats={t_feats} T_text={t_text} float32, tl in "
+                    f"[{t_text // 2}, {t_text}], fl in [{t_feats // 2}, {t_feats}]",
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bound_bytes, bound_ops),
+           "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+           "bytes": nbytes, "full_tensor_bytes": 4 * b * t_feats * t_text,
+           "decision_bytes": 4 * b * t_feats * mas.tokens_per_lane(t_text),
+           "chain_frames": int(fl.max())}
+    print(f"  {row['shape']}: kernel {ms:.4f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
+          f"{nbytes / 1e6:.1f} MB of valid cells; the whole tensor is "
+          f"{row['full_tensor_bytes'] / 1e6:.1f} MB; the kernel also writes and reads "
+          f"{row['decision_bytes'] / 1e6:.1f} MB of decision bits)  dependent chain "
+          f"{row['chain_frames']} frames  twin {plain_ms:.4f} ms  library: none (no single "
+          f"PyTorch call computes MAS)  -> {row['bound_ms'] / ms:.1%} of bound", flush=True)
+    return row
+
+
+def training_config(pretraining_steps=0, dropout=True):
+    """The flagship ExperimentConfig with the discriminator trained from the
+    first step; `dropout=False` sets every dropout and drop-path rate to 0."""
+    import dataclasses
+
+    from optispeech_tpu_torch.config import ExperimentConfig
+
+    cfg = ExperimentConfig()
+    cfg = dataclasses.replace(cfg, train_args=dataclasses.replace(
+        cfg.train_args, pretraining_steps=pretraining_steps))
+    if dropout:
+        return cfg
+    g = cfg.generator
+    zero = lambda v: dataclasses.replace(v, dropout=0.0, embed_dropout=0.0)  # noqa: E731
+    g = dataclasses.replace(
+        g, text_embedding=dataclasses.replace(g.text_embedding, dropout=0.0),
+        encoder=dataclasses.replace(g.encoder, drop_path=0.0),
+        decoder=dataclasses.replace(g.decoder, drop_path=0.0),
+        vocoder=dataclasses.replace(g.vocoder, drop_path=0.0),
+        duration_predictor=zero(g.duration_predictor), pitch_predictor=zero(g.pitch_predictor),
+        energy_predictor=zero(g.energy_predictor))
+    return dataclasses.replace(cfg, generator=g)
+
+
+def training_batch(cfg, b, t_text, t_mel, device, seed=0):
+    """Random ids, mel, pitch and energy from numpy `seed`, lengths as in
+    phase 6, segment starts sampled on the host with the matching
+    ground-truth crop (`wav_seg`), as the JAX trainer ships them."""
+    from optispeech_tpu_torch.ops.segments import (
+        host_sample_segment_starts,
+        host_slice_wav_segments,
+    )
+
+    rng = np.random.default_rng(seed)
+    feats = cfg.generator.features
+    x_lengths, mel_lengths = mas_lengths(rng, b, t_mel, t_text)
+    x = rng.integers(3, 150, (b, t_text))
+    x[np.arange(t_text)[None, :] >= x_lengths[:, None]] = 0
+    wav = (rng.normal(size=(b, t_mel * feats.hop_length)) * 0.1).astype(np.float32)
+    seg = min(cfg.generator.segment_size, t_mel)
+    starts = host_sample_segment_starts(rng, mel_lengths, seg)
+    batch = dict(
+        x=x, x_lengths=x_lengths.astype(np.int32), mel_lengths=mel_lengths.astype(np.int32),
+        mel=rng.normal(size=(b, feats.n_feats, t_mel)).astype(np.float32),
+        pitches=rng.normal(size=(b, t_mel)).astype(np.float32),
+        energies=rng.normal(size=(b, t_mel)).astype(np.float32),
+        start_idx=starts, wav_seg=host_slice_wav_segments(wav, starts, seg, feats.hop_length))
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def train_full_width(fc, mas):
+    """Returns the MAS kernel's launch count over the training run."""
+    from optispeech_tpu_torch.training.state import init_train_state
+    from optispeech_tpu_torch.training.step import make_train_step
+
+    cfg = training_config()
+    state = init_train_state(cfg, "cuda", seed=0)
+    n_g = sum(p.numel() for p in state.generator.parameters())
+    n_d = sum(p.numel() for p in state.discriminator.parameters())
+    g0 = [p.detach().clone() for p in state.generator.parameters()]
+    d0 = [p.detach().clone() for p in state.discriminator.parameters()]
+    b, (t_text, t_mel) = cfg.data.batch_size, (MAS_SHAPE[2], MAS_SHAPE[1])
+    batch = training_batch(cfg, b, t_text, t_mel, "cuda")
+    step = make_train_step(cfg)
+    print(f"  ExperimentConfig() (pretraining_steps=0), seed 0: G {n_g} / D {n_d} parameters; "
+          f"batch {b}, {t_text} tokens, {t_mel} frames, segment {cfg.generator.segment_size}",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    fc.convnext_block_fused.launches = 0
+    mas.viterbi_decode.launches = 0
+    walls, logs = [], None
+    for i in range(4):
+        t0 = time.perf_counter()
+        logs = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        bad = [k for k, v in logs.items() if not bool(torch.isfinite(v))]
+        assert not bad, f"step {i}: non-finite logs {bad}"
+    mas_launches, block_launches = mas.viterbi_decode.launches, fc.convnext_block_fused.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    g_moved = any(not torch.equal(a, p) for a, p in zip(g0, state.generator.parameters()))
+    d_moved = any(not torch.equal(a, p) for a, p in zip(d0, state.discriminator.parameters()))
+    print(f"  4 steps: wall {', '.join(f'{w:.1f}' for w in walls)} ms; median of the 3 after "
+          f"warm-up {statistics.median(walls[1:]):.1f} ms per step (observation, not a claim); "
+          f"peak memory {peak:.2f} GiB; MAS kernel launches {mas_launches}, fused-block "
+          f"launches {block_launches}; G changed {g_moved}, D changed {d_moved}", flush=True)
+    print("  last step: " + ", ".join(f"{k} {float(v):.4f}" for k, v in logs.items()), flush=True)
+    assert mas_launches == 4, f"expected one MAS launch per step, got {mas_launches} in 4"
+    assert block_launches == 0, f"the fused block launched {block_launches} times in training"
+    assert g_moved and d_moved, "a training step left G or D unchanged"
+    return mas_launches
+
+
+def train_cross_device():
+    from optispeech_tpu_torch.training.state import init_train_state
+    from optispeech_tpu_torch.training.step import make_train_step
+
+    cfg = training_config(dropout=False)
+    states = {dev: init_train_state(cfg, dev, seed=0) for dev in ("cuda", "cpu")}
+    for part in ("generator", "discriminator"):
+        sd = getattr(states["cuda"], part).state_dict()
+        getattr(states["cpu"], part).load_state_dict({k: v.cpu() for k, v in sd.items()})
+    batches = {dev: training_batch(cfg, 4, 32, 128, dev, seed=1) for dev in states}
+    durations = {}
+    for dev, state in states.items():
+        args = [batches[dev][k] for k in ("x", "x_lengths", "mel", "mel_lengths", "pitches",
+                                          "energies")]
+        state.generator.train()
+        with torch.no_grad():
+            durations[dev] = state.generator(*args, start_idx=batches[dev]["start_idx"])[
+                "durations"].cpu()
+    step = make_train_step(cfg)
+    logs = {dev: step(state, batches[dev]) for dev, state in states.items()}
+    dur_equal = torch.equal(durations["cuda"], durations["cpu"])
+    gaps = {k: abs(float(logs["cuda"][k]) - float(logs["cpu"][k])) / max(abs(float(logs["cpu"][k])),
+                                                                        1e-12)
+            for k in logs["cpu"]}
+    worst = max(gaps, key=gaps.get)
+    print(f"  batch 4, 32 tokens, 128 frames, no dropout: durations equal {dur_equal}; largest "
+          f"relative log gap {gaps[worst]:.2e} ({worst}; rtol {STEP_LOG_RTOL})", flush=True)
+    assert dur_equal, "MAS durations differ between card and CPU"
+    assert gaps[worst] <= STEP_LOG_RTOL, f"{worst} differs between card and CPU by {gaps[worst]}"
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from optispeech_tpu_torch.models.optispeech import OptiSpeech
+    from optispeech_tpu_torch.ops import _build, mas
     from optispeech_tpu_torch.ops import fused_convnext as fc
 
     t_start = time.perf_counter()
@@ -253,11 +461,13 @@ def main() -> int:
     print("  torch.backends.cuda.matmul.allow_tf32 = False; torch.backends.cudnn.allow_tf32 = False")
 
     phase("2. build")
-    info = fc.build_kernels()
-    print(f"  {info['path']}: built in {info['seconds']:.1f} s")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"    {line.strip()}")
+    t_build = time.perf_counter()
+    for name, info in _build.build_kernels().items():
+        print(f"  {name}: {info['path']} built in {info['seconds']:.1f} s")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"    {line.strip()}")
+    print(f"  all kernels built in {time.perf_counter() - t_build:.1f} s (in parallel)")
 
     phase("3. kernel check (kernel against twin on the card)")
     max_abs_err = check_kernel(fc, device)
@@ -268,10 +478,21 @@ def main() -> int:
     n_params = sum(p.numel() for p in api.generator.parameters())
     print(f"  OptiSpeech(ExperimentConfig(), en-g2p, fused decoder + trunk), seed 0: "
           f"{n_params} parameters", flush=True)
-    launches = main_path(fc, api)
+    launches = main_path(fc, mas, api)
 
     phase("5. cross-device (card kernel against CPU twin)")
     cross_device(api)
+    del api
+
+    phase("6. MAS kernel check (kernel against twin on the card)")
+    mas_err = check_mas(mas, device)
+    mas_row = time_mas(mas, device)
+
+    phase("7. training at full width")
+    mas_launches = train_full_width(fc, mas)
+
+    phase("8. training cross-device (card kernels against CPU twins)")
+    train_cross_device()
 
     trunk = rows["trunk"]
     kernel = {
@@ -284,8 +505,17 @@ def main() -> int:
         "shape": trunk["shape"],
         "other_shapes": [rows["decoder"]],
     }
+    mas_kernel = {
+        "name": "viterbi_decode", "route": "cuda",
+        "source": "optispeech_tpu_torch/csrc/mas_wavefront.cu",
+        "replaces": "optispeech_tpu/ops/pallas_mas_wavefront.py:152",
+        "launches": mas_launches, "max_abs_err": mas_err["durations"],
+        "ms": mas_row["ms"], "plain_ms": mas_row["plain_ms"], "bound_ms": mas_row["bound_ms"],
+        "bound_by": mas_row["bound_by"], "library_ms": None, "shape": mas_row["shape"],
+        "bin_loss_rel_err": mas_err["bin_loss_rel"], "grad_max_abs_err": mas_err["grad"],
+    }
     print(f"\n  total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": [kernel, mas_kernel]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,23 +1,26 @@
-"""JAX generator params -> the port's state dict.
+"""JAX params -> the port's state dicts.
 
-`state_dict_from_jax_params(params, gen_cfg)` takes the flax param tree of
-`optispeech_tpu`'s OptiSpeechGenerator as nested dicts of numpy arrays and
-returns the state dict of the port's `OptiSpeechGenerator`, whose keys are
-the reference's torch keys. Layouts converted:
+- `state_dict_from_jax_params(params, gen_cfg)` takes the flax param tree of
+  `optispeech_tpu`'s OptiSpeechGenerator (the training-only
+  `alignment_module` included) and returns the state dict of the port's
+  `OptiSpeechGenerator`, whose keys are the reference's torch keys.
+- `discriminator_state_dict_from_jax_params(params, disc_cfg)` does the same
+  for the VocosDiscriminator.
+Both take nested dicts of numpy arrays. Layouts converted:
 - flax Conv kernel (K, in/groups, out) -> Conv1d weight (out, in/groups, K);
+- flax 2-D Conv kernel (KH, KW, in, out) -> Conv2d weight (out, in, KH, KW);
+- flax WeightNorm scale (out,) -> the weight-norm g (out, 1, 1, 1), beside
+  the raw kernel as v;
 - flax Dense kernel (in, out)           -> Linear weight (out, in);
 - flax LayerNorm scale                  -> LayerNorm weight;
 - flax Embed embedding                  -> Embedding weight.
 
-The `alignment_module` subtree serves training only and is skipped by name;
-every other leaf must be consumed, and every expected leaf present, or the
-call raises KeyError.
+Every leaf must be consumed, and every expected leaf present, or the call
+raises KeyError.
 """
 
 import numpy as np
 import torch
-
-SKIPPED = ("alignment_module",)
 
 
 def _flatten(tree, prefix=""):
@@ -31,17 +34,31 @@ def _flatten(tree, prefix=""):
     return out
 
 
-def state_dict_from_jax_params(params: dict, gen_cfg) -> dict[str, torch.Tensor]:
-    flat = _flatten(params)
-    sd: dict[str, torch.Tensor] = {}
+class _Consumer:
+    """Pops leaves of a flattened JAX tree into a torch state dict."""
 
-    def take(path):
-        if path not in flat:
+    def __init__(self, params: dict):
+        self.flat = _flatten(params)
+        self.sd: dict[str, torch.Tensor] = {}
+
+    def take(self, path):
+        if path not in self.flat:
             raise KeyError(f"JAX params lack `{path}`")
-        return np.asarray(flat.pop(path), dtype=np.float32)
+        return np.asarray(self.flat.pop(path), dtype=np.float32)
 
-    def put(key, array):
-        sd[key] = torch.tensor(array)
+    def put(self, key, array):
+        self.sd[key] = torch.tensor(array)
+
+    def done(self) -> dict[str, torch.Tensor]:
+        leftover = sorted(self.flat)
+        if leftover:
+            raise KeyError(f"{len(leftover)} JAX params were not consumed, e.g. {leftover[:5]}")
+        return self.sd
+
+
+def state_dict_from_jax_params(params: dict, gen_cfg) -> dict[str, torch.Tensor]:
+    consumer = _Consumer(params)
+    take, put = consumer.take, consumer.put
 
     def conv(key, path, bias=True):
         put(f"{key}.weight", take(f"{path}/kernel").transpose(2, 1, 0))
@@ -104,9 +121,31 @@ def state_dict_from_jax_params(params: dict, gen_cfg) -> dict[str, torch.Tensor]
         put("sid_embed.weight", take("sid_embed/embedding"))
     if gen_cfg.num_languages > 1:
         put("lid_embed.weight", take("lid_embed/embedding"))
+    for name in ("t_conv1", "t_conv2", "f_conv1", "f_conv2", "f_conv3"):
+        conv(f"alignment_module.{name}", f"alignment_module/{name}")
+    return consumer.done()
 
-    leftover = sorted(k for k in flat if k.split("/")[0] not in SKIPPED)
-    if leftover:
-        raise KeyError(f"{len(leftover)} JAX params were not consumed, e.g. {leftover[:5]}")
-    return sd
+
+def discriminator_state_dict_from_jax_params(params: dict, disc_cfg) -> dict[str, torch.Tensor]:
+    """flax's WeightNorm scope keeps the wrapped conv as `Conv_<i>` (kernel,
+    bias) beside its wrapper `conv_<i>` / `conv_post`, which holds one param
+    named `Conv_<i>/kernel/scale` with literal slashes (critics.py:56-66)."""
+    consumer = _Consumer(params)
+    take, put = consumer.take, consumer.put
+
+    def stack(key, path):
+        wrappers = [f"conv_{i}" for i in range(5)] + ["conv_post"]
+        for i, wrapper in enumerate(wrappers):
+            k = f"{key}.convs.{i}" if i < 5 else f"{key}.conv_post"
+            v = take(f"{path}/Conv_{i}/kernel")  # (KH, KW, in, out)
+            g = take(f"{path}/{wrapper}/Conv_{i}/kernel/scale")
+            put(f"{k}.parametrizations.weight.original0", g.reshape(-1, 1, 1, 1))
+            put(f"{k}.parametrizations.weight.original1", v.transpose(3, 2, 0, 1))
+            put(f"{k}.bias", take(f"{path}/Conv_{i}/bias"))
+
+    for j, period in enumerate(disc_cfg.periods):
+        stack(f"multiperioddisc.discriminators.{j}", f"multiperioddisc/disc_p{period}")
+    for j, resolution in enumerate(disc_cfg.resolutions):
+        stack(f"multiresddisc.discriminators.{j}", f"multiresddisc/disc_r{resolution[0]}")
+    return consumer.done()
 

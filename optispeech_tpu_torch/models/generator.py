@@ -1,18 +1,32 @@
-"""Generator composition, inference half: text -> frames -> waveform.
+"""Generator composition: text -> frames -> waveform, plus the AM losses.
 
-Port of the inference methods of `optispeech_tpu/models/generator.py`:
+Port of `optispeech_tpu/models/generator.py`:
+- `forward`: the training forward at padded text/mel buckets (alignment,
+  MAS durations, teacher-forced predictors, a segment crop for the
+  vocoder, losses), in training mode with the caller's `torch.Generator`;
 - `encode`: token rate, text bucket in, durations/pitch/energy out;
 - `decode`: frame rate, at a mel bucket `n_frames` chosen by the caller;
 - `synthesise_fixed`: both, with durations kept on the device and the
   output capped at `n_frames`.
-Training (alignment, losses, segment crops) belongs to a later slice.
+The inference methods expect eval mode, as JAX runs them deterministic.
 """
 
 import torch
 from torch import nn
 
 from ..config import GeneratorConfig
-from ..ops import expand_by_duration, gaussian_upsample, sequence_mask
+from ..ops import (
+    average_by_duration,
+    expand_by_duration,
+    forward_sum_loss,
+    gaussian_upsample,
+    get_random_segments,
+    get_segments,
+    sequence_mask,
+    viterbi_decode,
+)
+from .losses import fastspeech2_loss
+from .modules.alignment import AlignmentModule
 from .modules.convnext import ConvNeXtBackbone
 from .modules.core import DurationPredictor, EnergyPredictor, PitchPredictor, TextEmbedding
 from .vocoder.wavenext import WaveNeXt
@@ -21,7 +35,8 @@ from .vocoder.wavenext import WaveNeXt
 def make_backbone(cfg, dim):
     if cfg.kind == "convnext":
         return ConvNeXtBackbone(dim, cfg.intermediate_dim, cfg.num_layers,
-                                cfg.layer_scale_init_value, fused_pallas=cfg.fused_pallas)
+                                cfg.layer_scale_init_value, fused_pallas=cfg.fused_pallas,
+                                drop_path=cfg.drop_path)
     raise NotImplementedError(
         f"backbone kind `{cfg.kind}` is not ported yet (ROADMAP.md, queue A, slice 3)"
     )
@@ -33,7 +48,7 @@ class OptiSpeechGenerator(nn.Module):
         self.cfg = cfg
         te = cfg.text_embedding
         self.text_embedding = TextEmbedding(cfg.dim, te.n_vocab, te.padding_idx,
-                                            te.max_source_positions)
+                                            te.max_source_positions, te.dropout)
         self.encoder = make_backbone(cfg.encoder, cfg.dim)
         self.decoder = make_backbone(cfg.decoder, cfg.dim)
         dp, pp, ep = cfg.duration_predictor, cfg.pitch_predictor, cfg.energy_predictor
@@ -41,22 +56,24 @@ class OptiSpeechGenerator(nn.Module):
             cfg.dim, dp.num_layers, dp.intermediate_dim, dp.kernel_size, dp.dropout, dp.separable)
         self.pitch_predictor = PitchPredictor(
             cfg.dim, pp.num_layers, pp.intermediate_dim, pp.kernel_size, pp.dropout,
-            pp.embed_kernel_size, pp.separable)
+            pp.embed_kernel_size, pp.separable, pp.embed_dropout)
         self.energy_predictor = EnergyPredictor(
             cfg.dim, ep.num_layers, ep.intermediate_dim, ep.kernel_size, ep.dropout,
-            ep.embed_kernel_size, ep.separable)
+            ep.embed_kernel_size, ep.separable, ep.embed_dropout)
+        self.alignment_module = AlignmentModule(cfg.dim, cfg.features.n_feats)
         v = cfg.vocoder
         self.vocoder = WaveNeXt(cfg.dim, v.dim, v.intermediate_dim, v.num_layers,
                                 cfg.features.n_fft, cfg.features.hop_length,
-                                fused_pallas=v.fused_pallas, f0_cond=v.f0_cond)
+                                fused_pallas=v.fused_pallas, f0_cond=v.f0_cond,
+                                drop_path=v.drop_path)
         if cfg.num_speakers > 1:
             self.sid_embed = nn.Embedding(cfg.num_speakers, cfg.dim)
         if cfg.num_languages > 1:
             self.lid_embed = nn.Embedding(cfg.num_languages, cfg.dim)
 
-    def _encode_text(self, x, input_padding_mask, sids, lids):
-        h, _ = self.text_embedding(x)
-        h = self.encoder(h, input_padding_mask)
+    def _encode_text(self, x, input_padding_mask, sids, lids, generator=None):
+        h, _ = self.text_embedding(x, generator)
+        h = self.encoder(h, input_padding_mask, generator=generator)
         zeros = lambda: torch.zeros((x.shape[0],), dtype=torch.long, device=x.device)  # noqa: E731
         if self.cfg.num_speakers > 1:
             sids = zeros() if sids is None else sids
@@ -65,6 +82,67 @@ class OptiSpeechGenerator(nn.Module):
             lids = zeros() if lids is None else lids
             h = h + self.lid_embed(lids.reshape(-1))[:, None, :]
         return h
+
+    def forward(self, x, x_lengths, mel, mel_lengths, pitches, energies, sids=None, lids=None,
+                start_idx=None, generator: torch.Generator | None = None):
+        """Training forward.
+
+        Args:
+            x: (B, T_text) phoneme ids. mel: (B, n_feats, T_mel).
+            pitches, energies: (B, T_mel) frame-level values.
+            start_idx: optional (B,) segment starts sampled on the host; when
+                given, `generator` is not used for the segment.
+            generator: the step's RNG (dropout, drop path, segment starts).
+
+        Returns a dict: wav_hat (B, segment*hop), start_idx, segment_size,
+        loss and its parts, durations.
+        """
+        c = self.cfg
+        t_text, t_mel = x.shape[1], mel.shape[-1]
+        x_mask = sequence_mask(x_lengths, t_text)
+        mel_mask = sequence_mask(mel_lengths, t_mel)
+        input_padding_mask, target_padding_mask = ~x_mask, ~mel_mask
+
+        h = self._encode_text(x, input_padding_mask, sids, lids, generator)
+        log_p_attn = self.alignment_module(h, mel.transpose(1, 2).to(h.dtype), x_lengths,
+                                           mel_lengths, x_masks=input_padding_mask)
+        # the DP is detached inside viterbi_decode; the bin loss trains the
+        # alignment module through its gather
+        durations, bin_loss = viterbi_decode(log_p_attn, x_lengths, mel_lengths)
+        duration_hat = self.duration_predictor(h.detach(), input_padding_mask, generator)
+
+        pitches_tok = average_by_duration(durations, pitches, x_lengths, mel_lengths)
+        energies_tok = average_by_duration(durations, energies, x_lengths, mel_lengths)
+        h, pitch_hat = self.pitch_predictor(h, input_padding_mask, pitches_tok, generator)
+        h, energy_hat = self.energy_predictor(h, input_padding_mask, energies_tok, generator)
+
+        y = gaussian_upsample(h, durations, mel_mask, x_mask)
+        y = self.decoder(y, target_padding_mask, generator=generator)
+
+        segment_size = min(c.segment_size, t_mel)
+        if start_idx is None:
+            num_frames = torch.clamp(mel_lengths - 4, min=1)
+            seg, start_idx = get_random_segments(generator, y.transpose(1, 2), num_frames,
+                                                 segment_size)
+        else:
+            seg = get_segments(y.transpose(1, 2), start_idx, segment_size)
+        seg = seg.transpose(1, 2)  # (B, S, C)
+        if c.detach_vocoder_input:
+            seg = seg.detach()
+        f0 = get_segments(pitches[:, None, :], start_idx, segment_size)
+        wav_hat = self.vocoder(seg, f0=f0.detach(), generator=generator)
+
+        d_l, p_l, e_l = fastspeech2_loss(duration_hat, pitch_hat, energy_hat, durations,
+                                         pitches_tok, energies_tok, x_lengths, t_text)
+        align_loss = forward_sum_loss(log_p_attn, x_lengths, mel_lengths) + bin_loss
+        lc = c.loss_coeffs
+        loss = (align_loss * lc.lambda_align + d_l * lc.lambda_duration
+                + p_l * lc.lambda_pitch + e_l * lc.lambda_energy)
+        return {
+            "wav_hat": wav_hat.float(), "start_idx": start_idx, "segment_size": segment_size,
+            "loss": loss, "align_loss": align_loss, "duration_loss": d_l,
+            "pitch_loss": p_l, "energy_loss": e_l, "durations": durations,
+        }
 
     def encode(self, x, x_lengths, sids=None, lids=None,
                d_factor: float = 1.0, p_factor: float = 1.0, e_factor: float = 1.0):

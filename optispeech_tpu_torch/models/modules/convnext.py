@@ -1,9 +1,11 @@
 """1-D ConvNeXt backbone: the encoder, the decoder and the WaveNeXt trunk.
 
-Port of `optispeech_tpu/models/modules/convnext.py`, inference only (no drop
-path). (B, T, C) in and out. With `fused`, each block runs as one call of
+Port of `optispeech_tpu/models/modules/convnext.py`. (B, T, C) in and out.
+In eval mode with `fused`, each block runs as one call of
 `ops.fused_convnext.convnext_block_fused`: the CUDA kernel on the card, its
-twin on the CPU. Submodule names follow the reference's torch keys
+twin on the CPU. In training mode the blocks run unfused, with drop path
+drawn from the caller's `torch.Generator`, as in JAX (fused only when
+deterministic). Submodule names follow the reference's torch keys
 (`convnext.{i}.dwconv.weight`, `final_layer_norm.weight`).
 """
 
@@ -17,13 +19,25 @@ from ...ops.fused_convnext import convnext_block_fused
 from .core import conv_btc
 
 
+def drop_path(x: torch.Tensor, drop_prob: float, generator: torch.Generator) -> torch.Tensor:
+    """Per-sample stochastic depth: keep each item's branch with probability
+    1 - drop_prob and scale it by 1 / (1 - drop_prob)."""
+    keep = 1.0 - drop_prob
+    mask = (torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), generator=generator,
+                       device=x.device) < keep).to(x.dtype)
+    if keep > 0.0:
+        mask = mask / keep
+    return x * mask
+
+
 class ConvNeXtBlock(nn.Module):
     """dwconv(k=7) -> LN -> Linear(C->I) -> exact GELU -> Linear(I->C)
-    -> layer scale -> residual."""
+    -> layer scale -> drop path -> residual."""
 
     def __init__(self, dim: int, intermediate_dim: int,
-                 layer_scale_init_value: Optional[float] = None):
+                 layer_scale_init_value: Optional[float] = None, drop_path_rate: float = 0.0):
         super().__init__()
+        self.drop_path_rate = drop_path_rate
         self.dwconv = nn.Conv1d(dim, dim, 7, padding=3, groups=dim)
         self.norm = nn.LayerNorm(dim, eps=1e-6)
         self.pwconv1 = nn.Linear(dim, intermediate_dim)
@@ -34,13 +48,17 @@ class ConvNeXtBlock(nn.Module):
             self.gamma = None
         self._fused_cache = None
 
-    def forward(self, x, fused: bool = False):
+    def forward(self, x, fused: bool = False, generator: Optional[torch.Generator] = None):
         if fused and self.gamma is not None:
             return convnext_block_fused(x, *self.fused_params())
         h = conv_btc(self.dwconv, x)
         h = self.pwconv2(F.gelu(self.pwconv1(self.norm(h)), approximate="none"))
         if self.gamma is not None:
             h = self.gamma.to(h.dtype) * h
+        if self.training and self.drop_path_rate > 0.0:
+            if generator is None:
+                raise ValueError("drop path in training needs a torch.Generator")
+            h = drop_path(h, self.drop_path_rate, generator)
         return x + h
 
     def fused_params(self):
@@ -69,25 +87,33 @@ class ConvNeXtBlock(nn.Module):
 
 class ConvNeXtBackbone(nn.Module):
     """Stack of ConvNeXt blocks, each followed by the keep-mask, then a
-    final LayerNorm. Layer scale is 1/num_layers unless given."""
+    final LayerNorm. Layer scale is 1/num_layers unless given; the drop-path
+    rate ramps linearly from 0 at the first block to `drop_path` at the last."""
 
     def __init__(self, dim: int, intermediate_dim: int = 1024, num_layers: int = 4,
-                 layer_scale_init_value: Optional[float] = None, fused_pallas: bool = False):
+                 layer_scale_init_value: Optional[float] = None, fused_pallas: bool = False,
+                 drop_path: float = 0.0):
         super().__init__()
         lsiv = layer_scale_init_value or 1.0 / num_layers
+        if num_layers > 1:
+            rates = [drop_path * i / (num_layers - 1) for i in range(num_layers)]
+        else:
+            rates = [0.0]
         self.convnext = nn.ModuleList(
-            [ConvNeXtBlock(dim, intermediate_dim, lsiv) for _ in range(num_layers)]
+            [ConvNeXtBlock(dim, intermediate_dim, lsiv, rate) for rate in rates]
         )
         self.final_layer_norm = nn.LayerNorm(dim, eps=1e-6)
         # module-level fused default (the decoder), OR'd with the call's `fused`
         self.fused_pallas = fused_pallas
 
-    def forward(self, x, padding_mask=None, fused: bool = False):
-        """padding_mask: (B, T) bool, True on PAD positions."""
-        fused = fused or self.fused_pallas
+    def forward(self, x, padding_mask=None, fused: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """padding_mask: (B, T) bool, True on PAD positions. `fused` applies
+        in eval mode only."""
+        fused = (fused or self.fused_pallas) and not self.training
         keep = None if padding_mask is None else (~padding_mask)[:, :, None].to(x.dtype)
         for block in self.convnext:
-            x = block(x, fused=fused)
+            x = block(x, fused=fused, generator=generator)
             if keep is not None:
                 x = x * keep
         return self.final_layer_norm(x)

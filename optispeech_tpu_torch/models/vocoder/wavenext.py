@@ -3,6 +3,8 @@
 Port of `optispeech_tpu/models/vocoder/wavenext.py`: conv embed (k=7)
 [+ f0 embed (k=3) when `f0_cond`] -> LN -> ConvNeXt backbone -> Linear(dim ->
 n_fft+2) -> Linear(n_fft+2 -> hop, no bias) -> (B, T*hop) -> clip [-1, 1].
+The trunk runs fused (the CUDA kernel) only in eval mode; in training it
+runs unfused with drop path.
 """
 
 from typing import Optional
@@ -33,7 +35,7 @@ class WaveNeXt(nn.Module):
     def __init__(self, input_channels: int, dim: int = 384, intermediate_dim: int = 1152,
                  num_layers: int = 8, n_fft: int = 1024, hop_length: int = 256,
                  layer_scale_init_value: Optional[float] = None, fused_pallas: bool = False,
-                 f0_cond: bool = False):
+                 f0_cond: bool = False, drop_path: float = 0.0):
         super().__init__()
         self.f0_cond = f0_cond
         self.fused_pallas = fused_pallas
@@ -42,10 +44,10 @@ class WaveNeXt(nn.Module):
             self.f0_embed = nn.Conv1d(1, dim, 3, padding=1)
         self.norm = nn.LayerNorm(dim, eps=1e-6)
         self.backbone = ConvNeXtBackbone(dim, intermediate_dim, num_layers,
-                                         layer_scale_init_value)
+                                         layer_scale_init_value, drop_path=drop_path)
         self.head = WaveNeXtHead(dim, n_fft, hop_length)
 
-    def forward(self, x, f0=None, padding_mask=None):
+    def forward(self, x, f0=None, padding_mask=None, generator: Optional[torch.Generator] = None):
         """x: (B, T, input_channels) -> (B, T*hop). f0: frame-level pitch,
         (B, T), (B, 1, T) or (B, T, 1); required when `f0_cond` is on."""
         x = conv_btc(self.embed, x)
@@ -55,5 +57,5 @@ class WaveNeXt(nn.Module):
             f0 = f0.reshape(x.shape[0], x.shape[1], 1).to(x.dtype)
             x = x + conv_btc(self.f0_embed, f0)
         x = self.norm(x)
-        x = self.backbone(x, padding_mask, fused=self.fused_pallas)
+        x = self.backbone(x, padding_mask, fused=self.fused_pallas, generator=generator)
         return self.head(x)

@@ -1,0 +1,84 @@
+"""Build and load the port's CUDA kernels.
+
+Every `csrc/<name>.cu` is compiled by nvcc into its own shared library with
+a plain C interface, `build/lib<name>-<hash>.so` beside the package, at
+first use. The hash covers the source and the flags, so an edit rebuilds.
+`build_kernels()` starts one nvcc per missing library, all at once, and
+waits for all of them; `load(name)` builds one if needed and opens it with
+ctypes. Nothing is compiled or loaded when a module is imported.
+"""
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def kernel_names() -> list[str]:
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if cuda_home and (Path(cuda_home) / "bin" / "nvcc").exists():
+        return str(Path(cuda_home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def library_path(name: str) -> Path:
+    source = CSRC / f"{name}.cu"
+    digest = hashlib.sha1(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_kernels(names=None) -> dict:
+    """Compile the named kernels (default: every source in csrc/) unless a
+    build of the same source exists; one nvcc per source, run in parallel.
+
+    Returns {name: {"path", "seconds", "log"}}; `log` holds nvcc's output
+    (ptxas register and shared-memory counts), empty when nothing was built."""
+    names = kernel_names() if names is None else list(names)
+    result, running = {}, {}
+    for name in names:
+        path = library_path(name)
+        if path.exists():
+            result[name] = {"path": str(path), "seconds": 0.0, "log": ""}
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, path, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, path, t0) in running.items():
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, path)  # atomic: a concurrent build never loads half a file
+        result[name] = {"path": str(path), "seconds": seconds, "log": log}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return result
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """The kernel library `name`, built first if needed."""
+    return ctypes.CDLL(build_kernels([name])[name]["path"])

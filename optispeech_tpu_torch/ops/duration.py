@@ -1,28 +1,59 @@
-"""Duration -> frame mapping ops (port of `optispeech_tpu/ops/duration.py`).
+"""Duration <-> frame mapping ops (port of `optispeech_tpu/ops/duration.py`).
 
-Both take a fixed output frame count and explicit length vectors, as the JAX
+All take a fixed frame count and explicit length vectors, as the JAX
 functions do, so the port sees the same bucketed shapes.
 """
 
 import torch
 
+from .masking import sequence_mask
+
 _NEG_INF = -1e9
+
+
+def _interval_matrix(durations: torch.Tensor, n_frames: int) -> torch.Tensor:
+    """(B, n_frames, T_text) bool: frame t belongs to token k when
+    cumsum_exclusive[k] <= t < cumsum[k]."""
+    dur = durations.float()
+    cs = torch.cumsum(dur, dim=1)
+    cs_ex = cs - dur
+    t = torch.arange(n_frames, dtype=torch.float32, device=dur.device)[None, :, None]
+    return (cs_ex[:, None, :] <= t) & (cs[:, None, :] > t)
 
 
 def expand_by_duration(x: torch.Tensor, durations: torch.Tensor,
                        n_frames: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Expand token-level features (B, T_text, C) to frame level.
-
-    Frame t belongs to token k when cumsum_exclusive[k] <= t < cumsum[k];
-    frames past the total duration are zero. Returns the (B, n_frames, C)
+    """Expand token-level features (B, T_text, C) to frame level; frames
+    past the total duration are zero. Returns the (B, n_frames, C)
     expansion and the (B,) int32 total durations."""
-    dur = durations.float()
-    cs = torch.cumsum(dur, dim=1)
-    cs_ex = cs - dur
-    t = torch.arange(n_frames, dtype=torch.float32, device=x.device)[None, :, None]
-    mult = ((cs_ex[:, None, :] <= t) & (cs[:, None, :] > t)).to(x.dtype)
+    mult = _interval_matrix(durations, n_frames).to(x.dtype)
     lengths = durations.sum(dim=1).to(torch.int32)
     return torch.matmul(mult, x), lengths
+
+
+def duration_to_frame_index(durations: torch.Tensor, n_frames: int) -> torch.Tensor:
+    """Per-frame token index (B, n_frames) int32; frames past the total
+    duration map to the last token index."""
+    cs = torch.cumsum(durations.float(), dim=1)
+    t = torch.arange(n_frames, dtype=torch.float32, device=cs.device)[None, :, None]
+    idx = (cs[:, None, :] <= t).sum(dim=-1).to(torch.int32)
+    return torch.clamp(idx, max=durations.shape[1] - 1)
+
+
+def average_by_duration(durations: torch.Tensor, xs: torch.Tensor, text_lengths: torch.Tensor,
+                        feats_lengths: torch.Tensor) -> torch.Tensor:
+    """Average frame-level values xs (B, T_feats) into token-level means
+    (B, T_text); tokens with no valid frame (padding included) get 0."""
+    t_text, t_feats = durations.shape[1], xs.shape[1]
+    frame_valid = sequence_mask(feats_lengths, t_feats)
+    xs = torch.where(frame_valid, xs, 0.0).float()
+    token_valid = sequence_mask(text_lengths, t_text)
+    dur = torch.where(token_valid, durations, 0)
+    m = (_interval_matrix(dur, t_feats) & frame_valid[:, :, None]).float()
+    sums = torch.einsum("bft,bf->bt", m, xs)
+    counts = m.sum(dim=1)
+    avg = sums / torch.clamp(counts, min=1.0)
+    return torch.where(token_valid & (counts > 0), avg, 0.0)
 
 
 def gaussian_upsample(hs: torch.Tensor, ds: torch.Tensor, h_masks: torch.Tensor,

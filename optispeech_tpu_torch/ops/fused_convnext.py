@@ -1,4 +1,4 @@
-"""Fused ConvNeXt block: the CUDA kernel, its plain twin, and the build.
+"""Fused ConvNeXt block: the CUDA kernel and its plain twin.
 
 Port of `optispeech_tpu/ops/pallas_convnext.py::convnext_block_fused`. One
 call computes a whole inference ConvNeXt block on x (B, T, C):
@@ -13,28 +13,19 @@ w1 (C, I), w2 (I, C).
 - `convnext_block_reference` is the twin: plain PyTorch, f32 throughout,
   with the two products on bf16-rounded operands and f32 accumulation.
 - The kernel is built with nvcc into `build/` beside the package at first
-  use (`build_kernels`) and loaded with ctypes.
+  use and loaded with ctypes (`ops/_build.py`).
 """
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
+
+from . import _build
 
 HALO = 3  # k=7 depthwise conv, symmetric
 CHANNELS = (128, 256, 384)  # the kernel's template instantiations
 I_CHUNK = 64  # the kernel walks I in chunks of this width
-
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "convnext_block.cu"
-BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def convnext_block_reference(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma):
@@ -123,49 +114,11 @@ def _check_args(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma):
     return b, t, c, inter
 
 
-# -- build and load -----------------------------------------------------------
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    if cuda_home and (Path(cuda_home) / "bin" / "nvcc").exists():
-        return str(Path(cuda_home) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-
-
-def _library_path() -> Path:
-    digest = hashlib.sha1(_SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"libconvnext_block-{digest}.so"
-
-
-def build_kernels() -> dict:
-    """Compile the kernel library unless a build of this source exists.
-
-    Returns {"path", "seconds", "log"}; `log` holds nvcc's output (ptxas
-    register and shared-memory counts), empty when nothing was built."""
-    path = _library_path()
-    if path.exists():
-        return {"path": str(path), "seconds": 0.0, "log": ""}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
-                          capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, path)  # atomic: a concurrent build never loads half a file
-    return {"path": str(path), "seconds": seconds, "log": proc.stdout + proc.stderr}
-
+# -- load ---------------------------------------------------------------------
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build_kernels()["path"])
+    lib = _build.load("convnext_block")
     fn = lib.convnext_block_fused_launch
     fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int

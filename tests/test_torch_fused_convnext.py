@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from optispeech_tpu_torch.ops import fused_convnext as fc
+from torch_card import cuda  # noqa: F401  (fixture)
 
 torch.set_num_threads(1)
 
@@ -118,15 +119,6 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
         x = x[:, :0]
     with pytest.raises(ValueError):
         fc._check_args(x, *p)
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    return torch.device("cuda")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,7 +1,8 @@
 """The port stands alone: it imports neither JAX nor the JAX package, its
-weight bridge consumes the whole JAX tree but the training-only
-`alignment_module`, its keys are the reference's torch keys, and its entry
-points do not fall back to the CPU unasked."""
+weight bridges consume the whole JAX trees (generator, with the
+training-only `alignment_module`, and discriminator), its keys are the
+reference's torch keys, and its entry points do not fall back to the CPU
+unasked."""
 
 import subprocess
 import sys
@@ -27,15 +28,24 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "optispeech_tpu"))
 print(len(names), bad)
 assert not bad, bad
+print(*names)
 """
+
+# the modules of the training slice, which the walk above must have imported
+TRAINING_MODULES = [f"optispeech_tpu_torch.{m}" for m in (
+    "ops.mas", "ops.ctc", "ops.prior", "ops.segments", "ops.stft", "ops.audio", "ops._build",
+    "models.losses", "models.modules.alignment", "models.discriminator.critics",
+    "models.discriminator.losses", "models.discriminator.vocos", "training.schedules",
+    "training.state", "training.step")]
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 20  # every module of the package was imported
+    first, imported = proc.stdout.splitlines()[:2]
+    assert int(first.split()[0]) >= 35  # every module of the package was imported
+    assert set(TRAINING_MODULES) <= set(imported.split())
 
 
 @pytest.fixture(scope="module")
@@ -44,6 +54,8 @@ def pair():
 
 
 def test_bridge_consumes_every_leaf_but_alignment_module(pair):
+    """Every leaf, `alignment_module` included since the port trains (the
+    name is kept from the inference-only bridge, which skipped it)."""
     from optispeech_tpu_torch.compat.from_jax import state_dict_from_jax_params
 
     japi, tapi = pair
@@ -52,9 +64,11 @@ def test_bridge_consumes_every_leaf_but_alignment_module(pair):
     assert "alignment_module" in params
     sd = state_dict_from_jax_params(params, cfg)
     assert set(sd) == set(tapi.generator.state_dict())
-    # without the skipped subtree the result is the same
+    assert any(k.startswith("alignment_module.") for k in sd)
+    # without the alignment module the tree is incomplete
     rest = {k: v for k, v in params.items() if k != "alignment_module"}
-    assert set(state_dict_from_jax_params(rest, cfg)) == set(sd)
+    with pytest.raises(KeyError, match="lack `alignment_module"):
+        state_dict_from_jax_params(rest, cfg)
     # a leaf the bridge does not know is an error, not silently dropped
     stray = {**params, "vocoder": {**params["vocoder"], "extra": {"kernel": np.zeros(3)}}}
     with pytest.raises(KeyError, match="not consumed"):
@@ -75,15 +89,43 @@ def test_state_dict_keys_are_the_reference_torch_keys(pair):
     japi, tapi = pair
     ref = params_np(japi.params)
     sd = {k: v.numpy() for k, v in tapi.generator.state_dict().items()}
-    # the port has no alignment module (training); hand the importer JAX's
-    for name, conv in ref.pop("alignment_module").items():
-        sd[f"alignment_module.{name}.weight"] = conv["kernel"].transpose(2, 1, 0)
-        sd[f"alignment_module.{name}.bias"] = conv["bias"]
     rebuilt = convert_torch_generator_state_dict(sd, japi.cfg.generator)
-    del rebuilt["alignment_module"]
     assert jax.tree_util.tree_structure(rebuilt) == jax.tree_util.tree_structure(ref)
     for a, b in zip(jax.tree_util.tree_leaves(rebuilt), jax.tree_util.tree_leaves(ref)):
         np.testing.assert_array_equal(np.asarray(a).reshape(b.shape), b)
+
+
+def test_discriminator_bridge_consumes_every_leaf():
+    """The flax WeightNorm layout (`Conv_<i>` beside its wrapper holding
+    `Conv_<i>/kernel/scale`) maps onto the port's g and v; a stray or a
+    missing leaf raises."""
+    import jax
+    import jax.numpy as jnp
+
+    from optispeech_tpu import config as jax_config
+    from optispeech_tpu.models.discriminator.vocos import VocosDiscriminator as JaxDisc
+    from optispeech_tpu_torch import config as torch_config
+    from optispeech_tpu_torch.compat.from_jax import discriminator_state_dict_from_jax_params
+    from optispeech_tpu_torch.models.discriminator import VocosDiscriminator
+
+    cfg = jax_config.DiscriminatorConfig(periods=(2, 3), resolutions=((256, 64, 256),),
+                                         mrd_channels=16)
+    wav = jnp.zeros((1, 1024))
+    params = params_np(jax.jit(
+        lambda k: JaxDisc(cfg, jax_config.FeatureConfig()).init(k, wav, wav))(
+        jax.random.PRNGKey(0))["params"])
+    sd = discriminator_state_dict_from_jax_params(params, cfg)
+    tcfg = torch_config.from_dict(torch_config.DiscriminatorConfig, jax_config.to_dict(cfg))
+    VocosDiscriminator(tcfg, torch_config.FeatureConfig()).load_state_dict(sd, strict=True)
+    scale = params["multiresddisc"]["disc_r256"]["conv_post"]["Conv_5/kernel/scale"]
+    g = sd["multiresddisc.discriminators.0.conv_post.parametrizations.weight.original0"]
+    np.testing.assert_array_equal(g.numpy().reshape(-1), scale)
+    stray = {**params, "extra": {"kernel": np.zeros(3)}}
+    with pytest.raises(KeyError, match="not consumed"):
+        discriminator_state_dict_from_jax_params(stray, cfg)
+    short = {"multiperioddisc": params["multiperioddisc"]}
+    with pytest.raises(KeyError, match="lack"):
+        discriminator_state_dict_from_jax_params(short, cfg)
 
 
 def test_entry_points_need_a_device_when_cuda_is_absent(pair, monkeypatch):
@@ -97,6 +139,11 @@ def test_entry_points_need_a_device_when_cuda_is_absent(pair, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         OptiSpeech.load_from_jax_params(cfg, params_np(japi.params))
     assert OptiSpeech(cfg, device="cpu").device.type == "cpu"
+    from optispeech_tpu_torch.training.state import init_train_state
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_train_state(cfg)
+    assert init_train_state(cfg, "cpu").rng.device.type == "cpu"
 
 
 def test_seeded_init_is_reproducible_and_flax_like(pair):

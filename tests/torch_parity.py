@@ -9,6 +9,7 @@ import dataclasses
 
 import jax
 import numpy as np
+import torch
 
 from optispeech_tpu import config as jax_config
 from optispeech_tpu.models.optispeech import OptiSpeech as JaxOptiSpeech
@@ -63,6 +64,74 @@ def build_pair(cfg, seed=0):
     tapi = TorchOptiSpeech.load_from_jax_params(to_torch_config(cfg), params_np(japi.params),
                                                 device="cpu")
     return japi, tapi
+
+
+def no_dropout(cfg):
+    """`cfg` with every dropout and drop-path rate at 0: JAX and torch draw
+    different random bits, so parity runs without them."""
+    g = cfg.generator
+    vp = lambda v: dataclasses.replace(v, dropout=0.0, embed_dropout=0.0)  # noqa: E731
+    g = dataclasses.replace(
+        g, text_embedding=dataclasses.replace(g.text_embedding, dropout=0.0),
+        encoder=dataclasses.replace(g.encoder, drop_path=0.0),
+        decoder=dataclasses.replace(g.decoder, drop_path=0.0),
+        vocoder=dataclasses.replace(g.vocoder, drop_path=0.0),
+        duration_predictor=vp(g.duration_predictor), pitch_predictor=vp(g.pitch_predictor),
+        energy_predictor=vp(g.energy_predictor))
+    return dataclasses.replace(cfg, generator=g)
+
+
+def train_setup(cfg, seed=0):
+    """JAX generator and discriminator modules with a TrainState from `seed`,
+    and the port's TrainState on the CPU holding the same weights."""
+    from optispeech_tpu.models.discriminator.vocos import VocosDiscriminator as JaxDisc
+    from optispeech_tpu.models.generator import OptiSpeechGenerator as JaxGen
+    from optispeech_tpu.training.state import init_train_state
+    from optispeech_tpu_torch.compat.from_jax import (
+        discriminator_state_dict_from_jax_params,
+        state_dict_from_jax_params,
+    )
+    from optispeech_tpu_torch.models.discriminator import VocosDiscriminator
+    from optispeech_tpu_torch.models.generator import OptiSpeechGenerator
+    from optispeech_tpu_torch.training.state import TrainState
+
+    jgen, jdisc = JaxGen(cfg.generator), JaxDisc(cfg.discriminator, cfg.generator.features)
+    jstate = init_train_state(cfg, jgen, jdisc, jax.random.PRNGKey(seed))
+    tcfg = to_torch_config(cfg)
+    gen = OptiSpeechGenerator(tcfg.generator)
+    gen.load_state_dict(state_dict_from_jax_params(params_np(jstate.g_params), tcfg.generator))
+    disc = VocosDiscriminator(tcfg.discriminator, tcfg.generator.features)
+    disc.load_state_dict(discriminator_state_dict_from_jax_params(params_np(jstate.d_params),
+                                                                  tcfg.discriminator))
+    return jgen, jdisc, jstate, TrainState(tcfg, gen, disc, torch.Generator().manual_seed(seed))
+
+
+def train_batch(rng, cfg, b=4, host_seg=True):
+    """A numpy training batch at the config's buckets, with segment starts
+    sampled on the host and the matching ground-truth crop (`wav_seg`), as
+    the JAX trainer ships them, or with the full `wav`."""
+    from optispeech_tpu.ops.segments import host_sample_segment_starts, host_slice_wav_segments
+
+    t_text, t_mel = cfg.data.text_bucket_size, cfg.data.mel_bucket_size
+    feats = cfg.generator.features
+    seg = min(cfg.generator.segment_size, t_mel)
+    mel_lengths = rng.integers(t_mel // 2, t_mel + 1, b).astype(np.int32)
+    x_lengths = rng.integers(t_text // 2, t_text + 1, b).astype(np.int32)
+    x = rng.integers(1, 100, (b, t_text)).astype(np.int32)
+    x[np.arange(t_text)[None, :] >= x_lengths[:, None]] = 0
+    batch = dict(
+        x=x, x_lengths=x_lengths,
+        mel=rng.normal(size=(b, feats.n_feats, t_mel)).astype(np.float32),
+        mel_lengths=mel_lengths,
+        pitches=rng.normal(size=(b, t_mel)).astype(np.float32),
+        energies=rng.normal(size=(b, t_mel)).astype(np.float32),
+    )
+    wav = (rng.normal(size=(b, t_mel * feats.hop_length)) * 0.1).astype(np.float32)
+    if not host_seg:
+        return {**batch, "wav": wav}
+    starts = host_sample_segment_starts(rng, mel_lengths, seg)
+    return {**batch, "start_idx": starts,
+            "wav_seg": host_slice_wav_segments(wav, starts, seg, feats.hop_length)}
 
 
 def random_tokens(rng, lengths, bucket=32):
