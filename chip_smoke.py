@@ -27,12 +27,29 @@ Phases, each of which fails the run on any error:
      MAS kernel must launch once per step and the fused block never;
   8. training cross-device: one step with no dropout on the card and on the
      CPU (the MAS twin), batch 4 at 32 tokens and 128 frames: equal
-     durations, every log close.
+     durations, every log close;
+  9. extraction MAS kernel check: the validation step's MAS kernel against
+     its plain twin at phase 6's timing shape and lengths, (2, 43, 12),
+     (3, 40, 10) and a one-token item: durations exactly equal and equal to
+     the wavefront kernel's, the per-token bin-loss sums and the bin loss
+     close; then its time beside its bound and the twin's;
+ 10. the trainer at full width: `cli/train.py::run` on the flagship config
+     (pretraining_steps=0, batch 128, periodicity metrics) over synthetic
+     utterances of 96-192 tokens and 384-768 frames, 4 steps with one
+     validation and one checkpoint, then a fresh trainer that restores step
+     4 and takes one more step; the MAS kernels must launch once per step
+     and once per val batch. The times come from the run's own log
+     (`perf/steps_per_sec`, `perf/val_*`) and from saving and restoring the
+     trained state once more through the checkpoint manager;
+ 11. validation cross-device: the validation step with no dropout on the
+     card and on the CPU (the twins), batch 4: equal durations, every log
+     close.
 Prints the kernels' JSON line and the card line, and as its last line
 {"ok": true, "device": {...}}. Without a card, or without the repo beside
 it, it exits non-zero and prints no result.
 """
 
+import gc
 import json
 import statistics
 import subprocess
@@ -54,6 +71,9 @@ PEAK_F32_FLOPS = 67e12  # non-tensor float32 (NVIDIA data sheet)
 MAS_SHAPE = (128, 768, 192)  # (B, T_feats, T_text): the phase-7 training batch
 MAS_BIN_RTOL, MAS_GRAD_ATOL = 1e-5, 1e-6  # tests/test_pallas_mas.py:49-54
 STEP_LOG_RTOL = 1e-3  # card against CPU, float32 with TF32 off, see phase 8
+# phase 10: the synthetic corpus, cut to give phase 7's 192-token, 768-frame buckets
+TRAIN_ITEMS, VAL_ITEMS = 256, 128
+TEXT_RANGE, MEL_RANGE = (96, 193), (384, 769)
 SENTENCE = ("The birch canoe slid on the smooth planks. "
             "Glue the sheet to the dark blue background.")
 WIDTHS = {"decoder": (256, 1024), "trunk": (384, 1152)}
@@ -284,15 +304,22 @@ def check_mas(mas, device):
     return worst
 
 
-def time_mas(mas, device):
-    """Kernel and twin times at the training batch's shape; the bound counts
-    the valid region each item's lengths leave (the kernel reads no more)."""
+def mas_timing_inputs(device):
+    """Log-probs at the training batch's shape with lengths from a seed (the
+    timing inputs of both MAS kernels), and the count of valid cells."""
     b, t_feats, t_text = MAS_SHAPE
     rng = np.random.default_rng(1)
     lp = np.log(rng.dirichlet(np.ones(t_text), size=(b, t_feats)) + 1e-8).astype(np.float32)
     tl, fl = mas_lengths(rng, b, t_feats, t_text)
-    cells = int((tl * fl).sum())
-    lp_d, tl_d, fl_d = (torch.as_tensor(np.asarray(a), device=device) for a in (lp, tl, fl))
+    tensors = [torch.as_tensor(np.asarray(a), device=device) for a in (lp, tl, fl)]
+    return tensors, int((tl * fl).sum()), int(fl.max())
+
+
+def time_mas(mas, device):
+    """Kernel and twin times at the training batch's shape; the bound counts
+    the valid region each item's lengths leave (the kernel reads no more)."""
+    b, t_feats, t_text = MAS_SHAPE
+    (lp_d, tl_d, fl_d), cells, chain = mas_timing_inputs(device)
     ms = time_ms(lambda: mas.mas_durations(lp_d, tl_d, fl_d), iters=50)
     plain_ms = time_ms(lambda: mas.viterbi_decode_reference(lp_d, tl_d, fl_d), iters=2, repeats=3)
     nbytes = 4 * cells + 4 * b * t_text + 8 * b  # valid log-probs in, durations out, lengths
@@ -304,7 +331,7 @@ def time_mas(mas, device):
            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
            "bytes": nbytes, "full_tensor_bytes": 4 * b * t_feats * t_text,
            "decision_bytes": 4 * b * t_feats * mas.tokens_per_lane(t_text),
-           "chain_frames": int(fl.max())}
+           "chain_frames": chain}
     print(f"  {row['shape']}: kernel {ms:.4f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
           f"{nbytes / 1e6:.1f} MB of valid cells; the whole tensor is "
           f"{row['full_tensor_bytes'] / 1e6:.1f} MB; the kernel also writes and reads "
@@ -365,7 +392,8 @@ def training_batch(cfg, b, t_text, t_mel, device, seed=0):
 
 
 def train_full_width(fc, mas):
-    """Returns the MAS kernel's launch count over the training run."""
+    """Returns the MAS kernel's launch count over the 4 steps and their
+    synchronised wall times in ms."""
     from optispeech_tpu_torch.training.state import init_train_state
     from optispeech_tpu_torch.training.step import make_train_step
 
@@ -404,7 +432,7 @@ def train_full_width(fc, mas):
     assert mas_launches == 4, f"expected one MAS launch per step, got {mas_launches} in 4"
     assert block_launches == 0, f"the fused block launched {block_launches} times in training"
     assert g_moved and d_moved, "a training step left G or D unchanged"
-    return mas_launches
+    return mas_launches, walls
 
 
 def train_cross_device():
@@ -435,6 +463,208 @@ def train_cross_device():
     print(f"  batch 4, 32 tokens, 128 frames, no dropout: durations equal {dur_equal}; largest "
           f"relative log gap {gaps[worst]:.2e} ({worst}; rtol {STEP_LOG_RTOL})", flush=True)
     assert dur_equal, "MAS durations differ between card and CPU"
+    assert gaps[worst] <= STEP_LOG_RTOL, f"{worst} differs between card and CPU by {gaps[worst]}"
+
+
+def check_extract(mas, device):
+    """The extraction kernel against its twin and against the wavefront
+    kernel on the same tensors; returns the worst gaps."""
+    rng = np.random.default_rng(2)
+    (lp_t, tl_t, fl_t), _, _ = mas_timing_inputs(device)
+    cases = {"training batch": (lp_t, tl_t, fl_t)}
+    for name, (b, t_feats, t_text, lengths) in {
+            "frames43": (2, 43, 12, ([12, 7], [43, 29])),
+            "pallas": (3, 40, 10, ([10, 6, 8], [40, 22, 31])),
+            "one token": (3, 20, 9, ([1, 9, 4], [3, 20, 1]))}.items():
+        lp = np.log(rng.dirichlet(np.ones(t_text), size=(b, t_feats)) + 1e-8).astype(np.float32)
+        cases[name] = [torch.as_tensor(np.asarray(a), device=device) for a in (lp, *lengths)]
+    worst = {"durations": 0.0, "binsum_rel": 0.0, "bin_loss_rel": 0.0}
+    for name, (lp, tl, fl) in cases.items():
+        ds, binsum = mas.mas_extract(lp, tl, fl)
+        bl = mas.viterbi_decode_extract(lp, tl, fl)[1]
+        wavefront = mas.mas_durations(lp, tl, fl)
+        torch.cuda.synchronize()
+        ds_ref, binsum_ref = mas.extract_reference(lp, tl, fl)
+        bl_ref = mas.bin_loss_from_binsum(binsum_ref, fl, lp.shape[1])
+        d_ds = float((ds - ds_ref).abs().max())
+        d_bs = float(((binsum - binsum_ref).abs() / binsum_ref.abs().clamp(min=1e-30)).max())
+        d_bl = abs(float(bl) - float(bl_ref)) / abs(float(bl_ref))
+        same_as_b3 = torch.equal(ds, wavefront)
+        ok = d_ds == 0.0 and d_bs <= MAS_BIN_RTOL and d_bl <= MAS_BIN_RTOL and same_as_b3
+        print(f"  {name:15s} {tuple(lp.shape)}: durations max|diff| {d_ds:.1f}, equal to the "
+              f"wavefront kernel's {same_as_b3}; binsum max rel diff {d_bs:.2e}, bin loss rel "
+              f"diff {d_bl:.2e} (rtol {MAS_BIN_RTOL}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"extraction kernel disagrees on `{name}`")
+        worst = {k: max(worst[k], v) for k, v in zip(worst, (d_ds, d_bs, d_bl))}
+    return worst
+
+
+def time_extract(mas, device):
+    """The extraction kernel's time at the training batch's shape and
+    phase 6's lengths; the bound counts the valid cells read once and the
+    two (B, T_text) outputs written once."""
+    b, t_feats, t_text = MAS_SHAPE
+    (lp_d, tl_d, fl_d), cells, chain = mas_timing_inputs(device)
+    ms = time_ms(lambda: mas.mas_extract(lp_d, tl_d, fl_d), iters=50)
+    plain_ms = time_ms(lambda: mas.extract_reference(lp_d, tl_d, fl_d), iters=2, repeats=3)
+    nbytes = 4 * cells + 2 * 4 * b * t_text + 8 * b
+    bound_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    bound_ops = 2 * cells / PEAK_F32_FLOPS * 1e3
+    row = {"shape": f"B={b} T_feats={t_feats} T_text={t_text} float32, phase 6's lengths",
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bound_bytes, bound_ops),
+           "bound_by": "bytes" if bound_bytes >= bound_ops else "operations", "bytes": nbytes,
+           "chain_frames": chain}
+    print(f"  {row['shape']}: kernel {ms:.4f} ms  bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}: {nbytes / 1e6:.1f} MB)  dependent chain {chain} frames  twin "
+          f"{plain_ms:.4f} ms  library: none (no single PyTorch call computes MAS)  -> "
+          f"{row['bound_ms'] / ms:.1%} of bound", flush=True)
+    return row
+
+
+def trainer_loaders(cfg):
+    from optispeech_tpu_torch.data.datamodule import BucketedCollate, DataLoader, SyntheticDataset
+
+    feats = cfg.generator.features
+    collate = BucketedCollate(
+        n_feats=feats.n_feats, statistics=cfg.data.statistics, hop_length=feats.hop_length,
+        text_bucket=cfg.data.text_bucket_size, mel_bucket=cfg.data.mel_bucket_size,
+        max_text_len=cfg.data.max_text_len, max_mel_len=cfg.data.max_mel_len)
+    data = lambda n, seed: SyntheticDataset(  # noqa: E731
+        n_items=n, n_feats=feats.n_feats, hop_length=feats.hop_length, seed=seed,
+        text_range=TEXT_RANGE, mel_range=MEL_RANGE)
+    train = DataLoader(data(TRAIN_ITEMS, 0), cfg.data.batch_size, collate, shuffle=True,
+                       seed=cfg.data.seed)
+    val = DataLoader(data(VAL_ITEMS, 1), cfg.data.batch_size, collate, shuffle=False,
+                     drop_last=False)
+    return train, val
+
+
+def train_entry_point(fc, mas, bare_ms):
+    """cli/train.py::run at full width, then a fresh Trainer that restores
+    step 4 and takes a 5th step; returns the kernels' launch counts over
+    both. `bare_ms` are phase 7's synchronised step times."""
+    import dataclasses
+    import shutil
+
+    from optispeech_tpu_torch.cli import train as cli
+    from optispeech_tpu_torch.training.checkpoint import TrainCheckpointManager
+    from optispeech_tpu_torch.training.state import init_train_state
+    from optispeech_tpu_torch.training.trainer import Trainer
+
+    cfg = training_config()
+    cfg = dataclasses.replace(
+        cfg, log_every_n_steps=1, val_every_n_steps=4, ckpt_every_n_steps=4,
+        train_args=dataclasses.replace(cfg.train_args, evaluate_periodicity=True))
+    out_dir = Path(__file__).resolve().parent / "runs" / "chip_smoke_trainer"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t_data = time.perf_counter()
+    train, val = trainer_loaders(cfg)
+    print(f"  synthetic corpus: {TRAIN_ITEMS} train / {VAL_ITEMS} val utterances, tokens "
+          f"{TEXT_RANGE[0]}-{TEXT_RANGE[1] - 1}, frames {MEL_RANGE[0]}-{MEL_RANGE[1] - 1}, made in "
+          f"{time.perf_counter() - t_data:.1f} s; batch {cfg.data.batch_size}", flush=True)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for counted in (fc.convnext_block_fused, mas.viterbi_decode, mas.viterbi_decode_extract):
+        counted.launches = 0
+    t0 = time.perf_counter()
+    args = cli.parse_args(["--device", "cuda", "--out-dir", str(out_dir), "--max-steps", "4",
+                           "--no-print-config"])
+    _, state = cli.run(cfg, args, train_loader=train, val_loader=val)
+    run_s = time.perf_counter() - t0
+    assert state.step == 4, f"the run ended at step {state.step}, not 4"
+    # a fresh trainer restores step 4 and takes one more step
+    resumed = Trainer(cfg, out_dir=str(out_dir), device="cuda")
+    state = resumed.init_or_restore_state()
+    restored = state.step
+    assert restored == 4, f"the fresh trainer restored step {restored}, not 4"
+    state = resumed.fit(trainer_loaders(cfg)[0], val, max_steps=5, state=state)
+    launches = {"viterbi_decode": mas.viterbi_decode.launches,
+                "viterbi_decode_extract": mas.viterbi_decode_extract.launches,
+                "convnext_block_fused": fc.convnext_block_fused.launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # the checkpoint layer on its own: the trained state saved and restored
+    ckpt_mb = sum(f.stat().st_size for f in (out_dir / cfg.ckpt_dir / "4").rglob("*")
+                  if f.is_file()) / 2 ** 20
+    manager = TrainCheckpointManager(str(out_dir / "timed_ckpt"), keep=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    manager.save(state.step, state, cfg)
+    t1 = time.perf_counter()
+    manager.wait()
+    t2 = time.perf_counter()
+    fresh = init_train_state(cfg, "cuda", seed=1)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    manager.restore(fresh)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    assert all(torch.equal(a, b) for a, b in zip(fresh.generator.parameters(),
+                                                 state.generator.parameters()))
+    del fresh
+
+    rows = [json.loads(line) for line in (out_dir / "metrics.jsonl").read_text().splitlines()]
+    bad = [(r["step"], k) for r in rows for k, v in r.items() if not np.isfinite(v)]
+    val_rows = [r for r in rows if "total_loss/val_total" in r]
+    fit_ms = {r["step"]: 1e3 / r["perf/steps_per_sec"] for r in rows if "perf/steps_per_sec" in r}
+    fmt = lambda xs: ", ".join(f"{x:.1f}" for x in xs)  # noqa: E731
+    print(f"  run(): 4 steps + validation + checkpoints + export in {run_s:.1f} s; a fresh "
+          f"trainer restored step {restored} and took step 5", flush=True)
+    print(f"  fit step (metrics.jsonl perf/steps_per_sec, one log to the next), steps "
+          f"{', '.join(str(k) for k in fit_ms)}: {fmt(fit_ms.values())} ms; median of steps 2-4 "
+          f"{statistics.median([fit_ms[k] for k in (2, 3, 4)]):.1f} ms against phase 7's bare "
+          f"step median {statistics.median(bare_ms[1:]):.1f} ms (observation, not a claim)",
+          flush=True)
+    v = val_rows[0] if val_rows else {}
+    print(f"  validation pass (perf/val_*): {1e3 * v.get('perf/val_seconds', 0):.1f} ms, of which "
+          f"synthesis {1e3 * v.get('perf/val_synth_seconds', 0):.1f} ms and perceptual metrics "
+          f"{1e3 * v.get('perf/val_metrics_seconds', 0):.1f} ms; {len(val_rows)} val row(s): "
+          + ", ".join(f"{k} {v[k]:.4f}" for k in ("total_loss/val_total",
+                                                    "gen_subloss/val_align_loss",
+                                                    "val/f1_score") if k in v), flush=True)
+    print(f"  checkpoint at step 4: {ckpt_mb:.1f} MiB; the trained state saved again: save "
+          f"(host copy, blocking) {(t1 - t0) * 1e3:.1f} ms, durable after {(t2 - t0) * 1e3:.1f} ms; "
+          f"restore into a fresh state {(t4 - t3) * 1e3:.1f} ms", flush=True)
+    print(f"  launches over both runs: {launches}; peak memory {peak:.2f} GiB", flush=True)
+    assert not bad, f"non-finite logged values at {bad}"
+    assert state.step == 5, f"the resumed run ended at step {state.step}, not 5"
+    assert len(val_rows) == 1, f"expected one validation, got {len(val_rows)}"
+    assert launches["viterbi_decode"] == 5, "expected one wavefront MAS launch per step"
+    n_val_batches = -(-VAL_ITEMS // cfg.data.batch_size)
+    assert launches["viterbi_decode_extract"] == n_val_batches, (
+        f"expected {n_val_batches} extraction launches (one per val batch)")
+    return launches
+
+
+def val_cross_device():
+    from optispeech_tpu_torch.training.state import init_train_state
+    from optispeech_tpu_torch.training.step import make_val_step
+
+    cfg = training_config(dropout=False)
+    states = {dev: init_train_state(cfg, dev, seed=0) for dev in ("cuda", "cpu")}
+    for part in ("generator", "discriminator"):
+        sd = getattr(states["cuda"], part).state_dict()
+        getattr(states["cpu"], part).load_state_dict({k: v.cpu() for k, v in sd.items()})
+    batches = {dev: training_batch(cfg, 4, 32, 128, dev, seed=2) for dev in states}
+    step = make_val_step(cfg)
+    logs, durations = {}, {}
+    for dev, state in states.items():
+        b = batches[dev]
+        logs[dev] = step(state, b)[0]
+        with torch.no_grad():
+            durations[dev] = state.generator(
+                *[b[k] for k in ("x", "x_lengths", "mel", "mel_lengths", "pitches", "energies")],
+                start_idx=b["start_idx"], extract_durations=True)["durations"].cpu()
+    dur_equal = torch.equal(durations["cuda"], durations["cpu"])
+    gaps = {k: abs(float(logs["cuda"][k]) - float(logs["cpu"][k])) / max(abs(float(logs["cpu"][k])),
+                                                                        1e-12)
+            for k in logs["cpu"]}
+    worst = max(gaps, key=gaps.get)
+    print(f"  batch 4, 32 tokens, 128 frames, no dropout: durations equal {dur_equal}; largest "
+          f"relative log gap {gaps[worst]:.2e} ({worst}; rtol {STEP_LOG_RTOL})", flush=True)
+    assert dur_equal, "extraction durations differ between card and CPU"
     assert gaps[worst] <= STEP_LOG_RTOL, f"{worst} differs between card and CPU by {gaps[worst]}"
 
 
@@ -489,17 +719,30 @@ def main() -> int:
     mas_row = time_mas(mas, device)
 
     phase("7. training at full width")
-    mas_launches = train_full_width(fc, mas)
+    mas_launches, bare_ms = train_full_width(fc, mas)
 
     phase("8. training cross-device (card kernels against CPU twins)")
     train_cross_device()
+
+    phase("9. extraction MAS kernel check (kernel against twin on the card)")
+    ext_err = check_extract(mas, device)
+    ext_row = time_extract(mas, device)
+
+    phase("10. the trainer at full width (cli/train.py::run, then a resume)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer_launches = train_entry_point(fc, mas, bare_ms)
+
+    phase("11. validation cross-device (card kernels against CPU twins)")
+    val_cross_device()
 
     trunk = rows["trunk"]
     kernel = {
         "name": "convnext_block_fused", "route": "cuda",
         "source": "optispeech_tpu_torch/csrc/convnext_block.cu",
         "replaces": "optispeech_tpu/ops/pallas_convnext.py:224",
-        "launches": launches, "max_abs_err": max_abs_err,
+        "launches": launches, "launch_path": "phase 4, synthesis",
+        "max_abs_err": max_abs_err,
         "ms": trunk["ms"], "plain_ms": trunk["plain_ms"], "bound_ms": trunk["bound_ms"],
         "bound_by": trunk["bound_by"], "library_ms": trunk["library_ms"],
         "shape": trunk["shape"],
@@ -509,13 +752,26 @@ def main() -> int:
         "name": "viterbi_decode", "route": "cuda",
         "source": "optispeech_tpu_torch/csrc/mas_wavefront.cu",
         "replaces": "optispeech_tpu/ops/pallas_mas_wavefront.py:152",
-        "launches": mas_launches, "max_abs_err": mas_err["durations"],
+        "launches": trainer_launches["viterbi_decode"],
+        "launch_path": "phase 10, the trainer (5 steps)", "launches_phase_7": mas_launches,
+        "max_abs_err": mas_err["durations"],
         "ms": mas_row["ms"], "plain_ms": mas_row["plain_ms"], "bound_ms": mas_row["bound_ms"],
         "bound_by": mas_row["bound_by"], "library_ms": None, "shape": mas_row["shape"],
         "bin_loss_rel_err": mas_err["bin_loss_rel"], "grad_max_abs_err": mas_err["grad"],
     }
+    extract_kernel = {
+        "name": "viterbi_decode_extract", "route": "cuda",
+        "source": "optispeech_tpu_torch/csrc/mas_extract.cu",
+        "replaces": "optispeech_tpu/ops/pallas_mas.py:128",
+        "launches": trainer_launches["viterbi_decode_extract"],
+        "launch_path": "phase 10, the trainer (1 validation of 1 batch)",
+        "max_abs_err": ext_err["durations"],
+        "ms": ext_row["ms"], "plain_ms": ext_row["plain_ms"], "bound_ms": ext_row["bound_ms"],
+        "bound_by": ext_row["bound_by"], "library_ms": None, "shape": ext_row["shape"],
+        "binsum_rel_err": ext_err["binsum_rel"], "bin_loss_rel_err": ext_err["bin_loss_rel"],
+    }
     print(f"\n  total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [kernel, mas_kernel]}))
+    print(json.dumps({"kernels": [kernel, mas_kernel, extract_kernel]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

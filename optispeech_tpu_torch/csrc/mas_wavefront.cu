@@ -2,22 +2,11 @@
 // through ctypes.
 //
 // Replaces optispeech_tpu/ops/pallas_mas_wavefront.py::viterbi_decode_wavefront,
-// the Pallas TPU kernel of batched MAS. For each item b, with tl = text
-// length and fl = frame length (both >= 1, clamped by the caller), on the
-// log-probs lp (B, F, T) f32:
-//
-//   Q[0][i] = lp[0][0] if i == 0 else BIG_NEG
-//   Q[j][i] = max(Q[j-1][i], Q[j-1][i-1]) + lp[j][i]        (Q[j-1][-1] = BIG_NEG)
-//   dec[j][i] = Q[j-1][i-1] >= Q[j-1][i]                     (take-left, ties left)
-//
-// then a backtrace from token tl-1 at frame fl-1: A[j-1] = A[j] - dec[j][A[j]]
-// unless A[j] == 0, and durations[i] = #{j < fl : A[j] == i}. This is the
-// recurrence, tie-breaking and frame pinning of optispeech_tpu/ops/mas.py::
-// viterbi_decode, with one max and one add per cell in f32 (no FMA, no
-// reassociation), so the durations are bit-equal to it. Only the valid
-// region (j < fl, i < tl) is read: Q at i < tl depends on lp[j'][i'] with
-// i' <= i only, and the backtrace never leaves it, so the padded cells that
-// the JAX function fills with BIG_NEG cannot change the result.
+// the Pallas TPU kernel of batched MAS. The forward DP is mas_forward.cuh's
+// (recurrence, tie-breaking and design there); this kernel then backtraces
+// from token tl-1 at frame fl-1: A[j-1] = A[j] - dec[j][A[j]] unless
+// A[j] == 0, and durations[i] = #{j < fl : A[j] == i}. The durations are
+// bit-equal to optispeech_tpu/ops/mas.py::viterbi_decode.
 //
 // Bound on this card: bytes. The kernel must read lp's valid region once,
 // sum_b fl*tl*4 bytes (at most B*F*T*4: 75.5 MB at B=128, F=768, T=192,
@@ -26,25 +15,12 @@
 // It also writes and re-reads the decision bits, B*F*T/8 bytes (2.4 MB at
 // that shape), which the TPU kernel streams to device memory as int8.
 //
-// Design (simple first, see PERF.md for its time against the bound):
-// - one warp per item, so the grid is the batch; lane l holds tokens
-//   l + 32c for c < C (C = tokens per lane, a template argument), so each
-//   32-token chunk of a frame is one coalesced load and its decisions are
-//   one __ballot_sync word;
-// - the Q row stays in registers: Q[j-1][i-1] comes from the lane below
-//   (__shfl_up_sync), or for lane 0 from lane 31's previous chunk. There is
-//   no block barrier in the frame loop: a barrier would also wait for the
-//   prefetched loads still in flight;
-// - the log-probs are prefetched PF frames ahead with cp.async into a ring
-//   in shared memory, each lane copying the cells it reads (a ring in
-//   registers measured slower: the loads share the warp's few scoreboards,
-//   so a frame waits for loads issued long after its own);
-// - lane 0 writes the decision words to a (B, F, C) scratch in device
-//   memory;
-// - the backtrace runs in the same warp: every 32 frames the lanes load the
-//   two decision words the path can touch (the path moves at most one token
-//   a frame), then the warp walks the 32 frames with shuffles and lane 0
-//   writes each token's run length as its duration.
+// Design (simple first, see PERF.md for its time against the bound): one
+// warp per item, so the grid is the batch, running mas_forward.cuh's
+// forward; the backtrace runs in the same warp: every 32 frames the lanes
+// load the two decision words the path can touch (the path moves at most
+// one token a frame), then the warp walks the 32 frames with shuffles and
+// lane 0 writes each token's run length as its duration.
 // What bounds it now (PERF.md): one warp per SM issues every instruction of
 // a frame in order with nothing to hide its latencies, about 0.4 us a frame
 // at T = 192. Not done yet: fewer instructions a frame (16-byte copies, no
@@ -54,28 +30,18 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "mas_forward.cuh"
+
 namespace {
 
-constexpr float BIG_NEG = -1e9f;
-constexpr unsigned FULL = 0xffffffffu;
-
-// one 4-byte async copy global -> shared; zero-fills the cell when !valid
-__device__ __forceinline__ void copy_async(float* dst, const float* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void commit_copies() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void wait_copies() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+using mas::FULL;
 
 template <int C>
 __global__ void __launch_bounds__(32)
 mas_wavefront_kernel(const float* __restrict__ lp, const int* __restrict__ text_lengths,
                      const int* __restrict__ feats_lengths, float* __restrict__ durations,
                      uint32_t* __restrict__ dec, int n_feats, int n_text) {
-  constexpr int PF = (256 / C) < 16 ? 256 / C : 16;  // frames in flight; ring <= 32 KB
-  __shared__ float ring[PF][32 * C];
+  __shared__ float ring[mas::ring_frames<C>()][32 * C];
   const int lane = threadIdx.x;
   const int b = blockIdx.x;
   const int tl = text_lengths[b], fl = feats_lengths[b];
@@ -83,46 +49,7 @@ mas_wavefront_kernel(const float* __restrict__ lp, const int* __restrict__ text_
   uint32_t* decb = dec + static_cast<size_t>(b) * n_feats * C;
   float* out = durations + static_cast<size_t>(b) * n_text;
 
-  // frame j's cells of this lane into ring slot j % PF (zeros outside the
-  // valid region); one commit group per frame, empty past the last one
-  auto fetch = [&](int j) {
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int i = lane + 32 * c;
-      const bool valid = j < fl && i < tl;  // zero-filled cells cost no read
-      copy_async(&ring[j % PF][i], valid ? lpb + static_cast<size_t>(j) * n_text + i : lpb, valid);
-    }
-    commit_copies();
-  };
-
-  // ---- forward: Q row in registers, decisions to the scratch -------------
-#pragma unroll
-  for (int k = 0; k < PF - 1; ++k) fetch(k);
-  float q[C];
-  for (int j = 0; j < fl; ++j) {
-    wait_copies<PF - 2>();  // frame j has landed
-    float v[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) v[c] = ring[j % PF][lane + 32 * c];
-    fetch(j + PF - 1);  // into the slot read at frame j-1
-    if (j == 0) {
-#pragma unroll
-      for (int c = 0; c < C; ++c) q[c] = (lane + 32 * c == 0) ? v[c] : BIG_NEG;
-      continue;
-    }
-    // high chunks first, so that q[c-1] still holds frame j-1 when read
-#pragma unroll
-    for (int c = C - 1; c >= 0; --c) {
-      const float below = __shfl_sync(FULL, c > 0 ? q[c > 0 ? c - 1 : 0] : BIG_NEG, 31);
-      const float up = __shfl_up_sync(FULL, q[c], 1);
-      const float left = lane == 0 ? below : up;  // Q[j-1][i-1]
-      const bool take_left = left >= q[c];
-      q[c] = __fadd_rn(fmaxf(q[c], left), v[c]);
-      const unsigned word = __ballot_sync(FULL, take_left);
-      if (lane == 0) decb[static_cast<size_t>(j) * C + c] = word;
-    }
-  }
-  wait_copies<0>();
+  mas::forward<C>(lpb, decb, tl, fl, n_text, ring);
 
   // ---- backtrace from frame fl-1 (pinned to token tl-1) down to 0 --------
   for (int i = lane; i < n_text; i += 32) out[i] = 0.f;

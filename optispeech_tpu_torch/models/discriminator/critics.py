@@ -23,6 +23,14 @@ from ...ops.stft import stft_magnitude
 LRELU_SLOPE = 0.1
 
 
+def _leaky_relu(x):
+    """JAX's leaky ReLU, `where(x >= 0, x, slope * x)`: its gradient at
+    exactly 0 is 1, where F.leaky_relu's is the slope. Exact zeros occur:
+    a zero stretch of the waveform (the padding past an utterance) through a
+    zero bias."""
+    return torch.where(x >= 0, x, x * LRELU_SLOPE)
+
+
 def _wn_conv(in_ch, out_ch, kernel, stride, padding):
     return parametrizations.weight_norm(nn.Conv2d(in_ch, out_ch, kernel, stride, padding), dim=0)
 
@@ -76,7 +84,7 @@ class DiscriminatorP(nn.Module):
         x = x.reshape(b, 1, t // self.period, self.period)
         fmap = []
         for i, conv in enumerate(self.convs):
-            x = F.leaky_relu(conv(x), LRELU_SLOPE)
+            x = _leaky_relu(conv(x))
             if i > 0:
                 fmap.append(x)
         x = self.conv_post(x)
@@ -101,7 +109,7 @@ class DiscriminatorR(nn.Module):
         x = mag.transpose(1, 2)[:, None]  # (B, 1, freq, frames)
         fmap = []
         for conv in self.convs:
-            x = F.leaky_relu(conv(x), LRELU_SLOPE)
+            x = _leaky_relu(conv(x))
             fmap.append(x)
         x = self.conv_post(x)
         fmap.append(x)

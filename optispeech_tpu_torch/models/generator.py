@@ -24,6 +24,7 @@ from ..ops import (
     get_segments,
     sequence_mask,
     viterbi_decode,
+    viterbi_decode_extract,
 )
 from .losses import fastspeech2_loss
 from .modules.alignment import AlignmentModule
@@ -84,8 +85,9 @@ class OptiSpeechGenerator(nn.Module):
         return h
 
     def forward(self, x, x_lengths, mel, mel_lengths, pitches, energies, sids=None, lids=None,
-                start_idx=None, generator: torch.Generator | None = None):
-        """Training forward.
+                start_idx=None, generator: torch.Generator | None = None,
+                extract_durations: bool = False):
+        """Training forward, or with `extract_durations` the validation forward.
 
         Args:
             x: (B, T_text) phoneme ids. mel: (B, n_feats, T_mel).
@@ -93,6 +95,10 @@ class OptiSpeechGenerator(nn.Module):
             start_idx: optional (B,) segment starts sampled on the host; when
                 given, `generator` is not used for the segment.
             generator: the step's RNG (dropout, drop path, segment starts).
+            extract_durations: set by a caller that takes no gradient (the
+                validation step): MAS runs the duration extraction
+                (`viterbi_decode_extract`), whose bin loss has no gradient,
+                instead of the training MAS.
 
         Returns a dict: wav_hat (B, segment*hop), start_idx, segment_size,
         loss and its parts, durations.
@@ -108,7 +114,8 @@ class OptiSpeechGenerator(nn.Module):
                                            mel_lengths, x_masks=input_padding_mask)
         # the DP is detached inside viterbi_decode; the bin loss trains the
         # alignment module through its gather
-        durations, bin_loss = viterbi_decode(log_p_attn, x_lengths, mel_lengths)
+        mas = viterbi_decode_extract if extract_durations else viterbi_decode
+        durations, bin_loss = mas(log_p_attn, x_lengths, mel_lengths)
         duration_hat = self.duration_predictor(h.detach(), input_padding_mask, generator)
 
         pitches_tok = average_by_duration(durations, pitches, x_lengths, mel_lengths)

@@ -65,6 +65,19 @@ class OptiSpeech:
         return cls(cfg, device=device, speakers=speakers,
                    state_dict=state_dict_from_jax_params(params_np, cfg.generator))
 
+    @classmethod
+    def load_from_checkpoint(cls, path: str, device=None, fused: bool = False) -> "OptiSpeech":
+        """Build from an inference checkpoint (`save_inference_checkpoint`);
+        `fused=True` routes the decoder and the vocoder trunk through the
+        fused block (`with_fused_blocks`)."""
+        from ..training.checkpoint import load_inference_checkpoint
+
+        cfg, state_dict, meta = load_inference_checkpoint(path)
+        if fused:
+            cfg = with_fused_blocks(cfg)
+        return cls(cfg, device=device, speakers=meta.get("speakers") or [],
+                   state_dict=state_dict)
+
     # ------------------------------------------------------------------
     def _tensors(self, inputs: InferenceInputs):
         """Pad the ids to the text bucket and move the inputs to the device."""

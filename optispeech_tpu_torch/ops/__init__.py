@@ -10,7 +10,12 @@ from .duration import (
 )
 from .fused_convnext import convnext_block_fused, convnext_block_reference
 from .masking import make_non_pad_mask, make_pad_mask, sequence_mask
-from .mas import viterbi_decode, viterbi_decode_reference
+from .mas import (
+    viterbi_decode,
+    viterbi_decode_extract,
+    viterbi_decode_extract_reference,
+    viterbi_decode_reference,
+)
 from .prior import beta_binomial_log_prior
 from .segments import get_random_segments, get_segments
 from .stft import log_mel_spectrogram, mel_filterbank, stft_magnitude
@@ -34,6 +39,8 @@ __all__ = [
     "log_mel_spectrogram",
     "viterbi_decode",
     "viterbi_decode_reference",
+    "viterbi_decode_extract",
+    "viterbi_decode_extract_reference",
     "convnext_block_fused",
     "convnext_block_reference",
 ]

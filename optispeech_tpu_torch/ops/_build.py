@@ -2,7 +2,8 @@
 
 Every `csrc/<name>.cu` is compiled by nvcc into its own shared library with
 a plain C interface, `build/lib<name>-<hash>.so` beside the package, at
-first use. The hash covers the source and the flags, so an edit rebuilds.
+first use. The hash covers the source, the shared headers (`csrc/*.cuh`)
+and the flags, so an edit rebuilds.
 `build_kernels()` starts one nvcc per missing library, all at once, and
 waits for all of them; `load(name)` builds one if needed and opens it with
 ctypes. Nothing is compiled or loaded when a module is imported.
@@ -41,8 +42,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    parts = [(CSRC / f"{name}.cu").read_bytes()]
+    parts += [header.read_bytes() for header in sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha1(b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -1,1 +1,2 @@
-"""Training: the GAN train step, its state and optimisers, LR schedules."""
+"""Training: the GAN train and validation steps, their state and optimisers,
+LR schedules, checkpoints, metrics and the training loop."""

@@ -1,1 +1,1 @@
-"""Host-side helpers: shape bucketing and device choice."""
+"""Host-side helpers: shape bucketing, device choice, config files, logging."""

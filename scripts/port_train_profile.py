@@ -8,9 +8,19 @@ pretraining_steps=0 so that D trains) on chip_smoke.py's phase-7 batch
 (128 items, 192 tokens, 768 frames, host-sampled segments): the median wall
 time of 3 steps after a warm-up, the peak memory of the generator turn and
 of the discriminator turn, then one step under torch.profiler with device
-time per kernel and the device-busy share of the wall. Needs a card.
+time per kernel and the device-busy share of the wall.
+
+Then the loop around the step: `Trainer.fit` over chip_smoke.py phase 10's
+synthetic corpus for 4 steps with the 4th traced (`profile_steps`; the
+first three each meet a new batch shape or an epoch's first batch): the
+host spans `trainer/segment` and `trainer/to_device`, the traced window's
+wall and the device's busy share of it, and the collation of one batch,
+which the loader runs on its prefetch thread. Needs a card.
 """
 
+import dataclasses
+import json
+import shutil
 import statistics
 import sys
 import time
@@ -18,11 +28,19 @@ from pathlib import Path
 
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
 
-from chip_smoke import MAS_SHAPE, card_line, training_batch, training_config  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    MAS_SHAPE,
+    card_line,
+    trainer_loaders,
+    training_batch,
+    training_config,
+)
 
 STEPS = 3
+TRACED = (3, 3)  # 0-based steps of `fit` under the profiler
 
 
 def main() -> int:
@@ -89,6 +107,62 @@ def main() -> int:
     for e in sorted(events, key=lambda e: -e.device_time_total)[:20]:
         ms = e.device_time_total / 1e3
         print(f"{e.key[:80]:80s} {e.count:6d} {ms:9.3f} {ms / device_ms:7.1%}")
+    del state, batch
+    torch.cuda.empty_cache()
+    return trainer_loop()
+
+
+def busy_ms(intervals):
+    """The length of the union of (start, end) intervals."""
+    total, reach = 0.0, float("-inf")
+    for start, end in sorted(intervals):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total
+
+
+def trainer_loop() -> int:
+    from optispeech_tpu_torch.training.trainer import Trainer
+
+    cfg = training_config()
+    cfg = dataclasses.replace(cfg, log_every_n_steps=1, val_every_n_steps=10 ** 9,
+                              ckpt_every_n_steps=10 ** 9)
+    train, _ = trainer_loaders(cfg)
+    items = [train.dataset[i] for i in range(cfg.data.batch_size)]
+    t0 = time.perf_counter()
+    train.collate(items)
+    collate_ms = (time.perf_counter() - t0) * 1e3
+    out_dir = ROOT / "runs" / "port_train_profile"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    trainer = Trainer(cfg, out_dir=str(out_dir), device="cuda")
+    trainer.fit(train, None, max_steps=4, profile_steps=TRACED)
+    events = [e for e in json.loads((out_dir / "profile" / "trace.json").read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    spans = {name: [e["dur"] / 1e3 for e in events if e["name"] == name
+                    and e.get("cat") == "user_annotation"]
+             for name in ("trainer/segment", "trainer/to_device")}
+    kernels = [(e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") == "kernel"]
+    if not kernels or not all(spans.values()):
+        print("the trace holds no kernels or no trainer spans: the loop's breakdown not measured")
+        return 1
+    start = min(e["ts"] for e in events if e["name"] == "trainer/segment")
+    end = max(e["ts"] + e["dur"] for e in events)
+    window_ms = (end - start) / 1e3
+    device_ms = busy_ms(kernels) / 1e3
+    rows = [json.loads(line) for line in (out_dir / "metrics.jsonl").read_text().splitlines()]
+    fit_ms = [1e3 / r["perf/steps_per_sec"] for r in rows if "perf/steps_per_sec" in r]
+    n = TRACED[1] - TRACED[0] + 1
+    print(f"\nTrainer.fit, batch {cfg.data.batch_size} over chip_smoke.py phase 10's corpus, "
+          f"step(s) {TRACED[0] + 1}-{TRACED[1] + 1} of 4 traced")
+    print(f"  fit step (perf/steps_per_sec), steps 1-4: {', '.join(f'{x:.1f}' for x in fit_ms)} ms "
+          f"(step {TRACED[0] + 1}-{TRACED[1] + 1} under the profiler, with its trace's export)")
+    for name, ms in spans.items():
+        print(f"  {name}: {', '.join(f'{x:.2f}' for x in ms)} ms per step")
+    print(f"  traced window: wall {window_ms:.1f} ms for {n} steps, device kernels {device_ms:.1f} ms "
+          f"({device_ms / window_ms:.1%} busy, {1 - device_ms / window_ms:.1%} idle)")
+    print(f"  collate of one batch of {cfg.data.batch_size} (the loader's thread): "
+          f"{collate_ms:.1f} ms")
     return 0
 
 

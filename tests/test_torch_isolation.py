@@ -31,12 +31,30 @@ assert not bad, bad
 print(*names)
 """
 
-# the modules of the training slice, which the walk above must have imported
+# the modules of the training slices, which the walk above must have imported
 TRAINING_MODULES = [f"optispeech_tpu_torch.{m}" for m in (
     "ops.mas", "ops.ctc", "ops.prior", "ops.segments", "ops.stft", "ops.audio", "ops._build",
     "models.losses", "models.modules.alignment", "models.discriminator.critics",
     "models.discriminator.losses", "models.discriminator.vocos", "training.schedules",
-    "training.state", "training.step")]
+    "training.state", "training.step", "training.checkpoint", "training.trainer",
+    "training.metrics", "training.loggers", "data.datamodule", "data.dsp", "utils.yamlcfg",
+    "utils.pylogger", "cli.train")]
+
+# without pyyaml the CLI imports and trains a config built in code; only
+# reading a YAML file needs it
+_WITHOUT_YAML = """
+import sys
+sys.modules["yaml"] = None  # any `import yaml` now raises
+from optispeech_tpu_torch.cli import train
+from optispeech_tpu_torch.config import ExperimentConfig
+from optispeech_tpu_torch.utils import yamlcfg
+args = train.parse_args(["--synthetic", "--device", "cpu"])
+assert args.device == "cpu" and ExperimentConfig().data.batch_size == 128
+try:
+    yamlcfg.load_experiment("default")
+except ImportError:
+    print("yaml needed only to load")
+"""
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -46,6 +64,28 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     first, imported = proc.stdout.splitlines()[:2]
     assert int(first.split()[0]) >= 35  # every module of the package was imported
     assert set(TRAINING_MODULES) <= set(imported.split())
+
+
+def test_training_cli_imports_without_yaml():
+    proc = subprocess.run([sys.executable, "-c", _WITHOUT_YAML], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip() == "yaml needed only to load"
+
+
+def test_kernel_sources_are_self_contained():
+    """Every CUDA source the build compiles includes only the CUDA runtime,
+    the C++ standard library and the port's own headers."""
+    import re
+
+    csrc = REPO / "optispeech_tpu_torch" / "csrc"
+    sources = sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
+    assert {p.name for p in sources} >= {"convnext_block.cu", "mas_wavefront.cu",
+                                          "mas_extract.cu", "mas_forward.cuh"}
+    for path in sources:
+        for inc in re.findall(r'#include\s+[<"]([^>"]+)[>"]', path.read_text()):
+            assert inc in {"cstdint", "stdint.h", "cuda_runtime.h", "cuda_bf16.h", "mma.h"} or (
+                csrc / inc).exists(), (path.name, inc)
 
 
 @pytest.fixture(scope="module")

@@ -368,6 +368,22 @@ def test_critics_scores_and_feature_maps(setup, family):
                 _close(f_t.permute(0, 2, 3, 1), f_j)  # NCHW -> JAX's NHWC
 
 
+def test_leaky_relu_gradient_at_zero_is_jax_s():
+    """The critics' leaky ReLU takes JAX's gradient at exactly 0 (1, not the
+    slope): a zero stretch of waveform through a zero bias gives exact zeros."""
+    from optispeech_tpu_torch.models.discriminator import critics
+
+    x = np.array([-2.0, -0.0, 0.0, 3.0], np.float32)
+    expect = jax.vmap(jax.grad(lambda v: jax.nn.leaky_relu(v, critics.LRELU_SLOPE)))(
+        jnp.asarray(x))
+    t = torch.from_numpy(x).requires_grad_(True)
+    critics._leaky_relu(t).sum().backward()
+    np.testing.assert_array_equal(t.grad.numpy(), np.asarray(expect))
+    np.testing.assert_array_equal(critics._leaky_relu(t).detach().numpy(),
+                                  np.asarray(jax.nn.leaky_relu(jnp.asarray(x),
+                                                               critics.LRELU_SLOPE)))
+
+
 def test_torch_weight_norm_init(setup):
     """g = ||v|| per output channel, as the JAX function sets the flax scales
     (`init_train_state` applies it; the bridge carried its result over)."""

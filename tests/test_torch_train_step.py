@@ -251,10 +251,16 @@ def test_a_fixed_generator_reproduces_a_step_with_dropout():
 
 
 def test_accumulation_is_not_ported_yet():
+    """The name is kept from when accumulation raised; accumulation is
+    ported now (tests/test_torch_train_options.py holds it against
+    optax.MultiSteps). A state with k = 2 builds a running-mean buffer per
+    parameter, and one without builds none."""
     from optispeech_tpu_torch.training.state import init_train_state
 
     cfg = to_torch_config(tiny_experiment())
+    assert init_train_state(cfg, "cpu").g_opt.acc is None
     cfg = dataclasses.replace(cfg, train_args=dataclasses.replace(
         cfg.train_args, gradient_accumulate_batches=2))
-    with pytest.raises(NotImplementedError, match="MultiSteps"):
-        init_train_state(cfg, "cpu")
+    opt = init_train_state(cfg, "cpu").g_opt
+    assert opt.every == 2 and opt.mini_step == 0
+    assert [a.shape for a in opt.acc] == [p.shape for p in opt.params]
