@@ -43,7 +43,22 @@ Phases, each of which fails the run on any error:
      trained state once more through the checkpoint manager;
  11. validation cross-device: the validation step with no dropout on the
      card and on the CPU (the twins), batch 4: equal durations, every log
-     close.
+     close;
+ 12. int8 kernel check: the int8 fused ConvNeXt-block kernel against its
+     plain twin at both model widths, B = 32, T = 1792 / 1000 / 5, x in
+     float32 and bfloat16: at least 99% of frames within atol = rtol = 1e-5
+     (plus 2 * 2**-7 relative for a bfloat16 output) and every element within
+     1e-2 of max|twin|; then its time (x bfloat16, the A/B's type) beside its
+     bound (int8 operations), the twin's time and the unfused int8 block
+     with `torch._int_mm` products (`library_ms`, a yardstick only);
+ 13. the int8 A/B at its default shape: `cli/int8_ab.py::main` at batch 32,
+     T 1792, every arm (8-block trunks at 384/1152); the int8 kernel must
+     launch 8 times per int8 trunk call and the bf16 kernel 8 times per
+     fused-bf16 call. With x in bfloat16 every arm's error against the f32
+     oracle is set by the bfloat16 residual stream (the updates a block adds
+     below half a bfloat16 step are lost), so the int8 trunk is also run
+     with x in float32 and held under 0.02 of max|oracle| there.
+The kernels build in parallel (one nvcc per source, four sources).
 Prints the kernels' JSON line and the card line, and as its last line
 {"ok": true, "device": {...}}. Without a card, or without the repo beside
 it, it exits non-zero and prints no result.
@@ -68,6 +83,12 @@ ATOL = 3e-3  # bf16 operands, f32 accumulation, other summation order
 BF16_RTOL = 2 * 2.0 ** -7  # plus two roundings of a bf16 output
 WAV_ATOL = 2e-3  # card (kernel) against CPU (twin), see phase 5
 PEAK_F32_FLOPS = 67e12  # non-tensor float32 (NVIDIA data sheet)
+PEAK_INT8_OPS = 1979e12  # int8 tensor-core dense (NVIDIA data sheet)
+# int8 kernel against its twin: tests/test_pallas_convnext.py:69's 1e-5 on
+# at least 99% of frames; a frame whose int8 code falls on the other side of
+# a rounding boundary moves as a whole, by far less than 1e-2 of max|twin|
+INT8_TOL, INT8_FRAME_SHARE, INT8_ELEM_REL = 1e-5, 0.99, 1e-2
+INT8_AB_ERR = 0.02  # int8 block against the f32 block, tests/test_pallas_convnext.py:74
 MAS_SHAPE = (128, 768, 192)  # (B, T_feats, T_text): the phase-7 training batch
 MAS_BIN_RTOL, MAS_GRAD_ATOL = 1e-5, 1e-6  # tests/test_pallas_mas.py:49-54
 STEP_LOG_RTOL = 1e-3  # card against CPU, float32 with TF32 off, see phase 8
@@ -80,8 +101,11 @@ WIDTHS = {"decoder": (256, 1024), "trunk": (384, 1152)}
 BENCH = dict(batch=32, n_tokens=120, d_factor=8.0, n_frames=1792)
 
 
+T0 = [0.0]  # the script's start on the host clock, set by main
+
+
 def phase(name):
-    print(f"\n== {name}", flush=True)
+    print(f"\n== {name}  (at {time.perf_counter() - T0[0]:.1f} s)", flush=True)
 
 
 def card_line() -> str:
@@ -106,11 +130,13 @@ def time_ms(fn, iters, repeats=5):
     return statistics.median(times)
 
 
-def block_inputs(gen, b, t, c, inter, dtype, device):
-    mk = lambda *s, sc=0.1: (torch.randn(*s, generator=gen) * sc).to(device)  # noqa: E731
+def block_inputs(gen, b, t, c, inter, dtype, device, weight_dtype=torch.bfloat16):
+    """x and the block's parameters, drawn from `gen` on its own device."""
+    mk = lambda *s, sc=0.1: (  # noqa: E731
+        torch.randn(*s, generator=gen, device=gen.device) * sc).to(device)
     x = mk(b, t, c, sc=0.5).to(dtype)
-    params = [mk(7, c), mk(c), 1.0 + mk(c), mk(c), mk(c, inter, sc=0.05).bfloat16(),
-              mk(inter, sc=0.02), mk(inter, c, sc=0.05).bfloat16(), mk(c, sc=0.02),
+    params = [mk(7, c), mk(c), 1.0 + mk(c), mk(c), mk(c, inter, sc=0.05).to(weight_dtype),
+              mk(inter, sc=0.02), mk(inter, c, sc=0.05).to(weight_dtype), mk(c, sc=0.02),
               torch.full((c,), 0.25, device=device)]
     return x, params
 
@@ -208,6 +234,7 @@ def bench_inputs():
 def main_path(fc, mas, api):
     """Returns the fused block's launch count over the main path's runs."""
     fc.convnext_block_fused.launches = 0
+    fc.convnext_block_fused_int8.launches = 0
     mas.viterbi_decode.launches = 0
     inputs = api.prepare_input(SENTENCE)
     out = api.synthesise(inputs)
@@ -237,6 +264,7 @@ def main_path(fc, mas, api):
     launches = fc.convnext_block_fused.launches
     assert launches == 12 * decodes, f"expected {12 * decodes} launches, got {launches}"
     assert mas.viterbi_decode.launches == 0, "synthesis launched the MAS kernel"
+    assert fc.convnext_block_fused_int8.launches == 0, "synthesis launched the int8 block"
     wav = o["wav"]
     assert wav.shape == (BENCH["batch"], n_frames * api.hop_length)
     assert bool(torch.isfinite(wav).all()) and o["wav_pcm16"].dtype == torch.int16
@@ -411,6 +439,7 @@ def train_full_width(fc, mas):
           flush=True)
     torch.cuda.reset_peak_memory_stats()
     fc.convnext_block_fused.launches = 0
+    fc.convnext_block_fused_int8.launches = 0
     mas.viterbi_decode.launches = 0
     walls, logs = [], None
     for i in range(4):
@@ -431,6 +460,7 @@ def train_full_width(fc, mas):
     print("  last step: " + ", ".join(f"{k} {float(v):.4f}" for k, v in logs.items()), flush=True)
     assert mas_launches == 4, f"expected one MAS launch per step, got {mas_launches} in 4"
     assert block_launches == 0, f"the fused block launched {block_launches} times in training"
+    assert fc.convnext_block_fused_int8.launches == 0, "training launched the int8 block"
     assert g_moved and d_moved, "a training step left G or D unchanged"
     return mas_launches, walls
 
@@ -566,7 +596,8 @@ def train_entry_point(fc, mas, bare_ms):
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for counted in (fc.convnext_block_fused, mas.viterbi_decode, mas.viterbi_decode_extract):
+    for counted in (fc.convnext_block_fused, fc.convnext_block_fused_int8, mas.viterbi_decode,
+                    mas.viterbi_decode_extract):
         counted.launches = 0
     t0 = time.perf_counter()
     args = cli.parse_args(["--device", "cuda", "--out-dir", str(out_dir), "--max-steps", "4",
@@ -582,7 +613,8 @@ def train_entry_point(fc, mas, bare_ms):
     state = resumed.fit(trainer_loaders(cfg)[0], val, max_steps=5, state=state)
     launches = {"viterbi_decode": mas.viterbi_decode.launches,
                 "viterbi_decode_extract": mas.viterbi_decode_extract.launches,
-                "convnext_block_fused": fc.convnext_block_fused.launches}
+                "convnext_block_fused": fc.convnext_block_fused.launches,
+                "convnext_block_fused_int8": fc.convnext_block_fused_int8.launches}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
     # the checkpoint layer on its own: the trained state saved and restored
@@ -632,6 +664,7 @@ def train_entry_point(fc, mas, bare_ms):
     assert state.step == 5, f"the resumed run ended at step {state.step}, not 5"
     assert len(val_rows) == 1, f"expected one validation, got {len(val_rows)}"
     assert launches["viterbi_decode"] == 5, "expected one wavefront MAS launch per step"
+    assert launches["convnext_block_fused_int8"] == 0, "the trainer launched the int8 block"
     n_val_batches = -(-VAL_ITEMS // cfg.data.batch_size)
     assert launches["viterbi_decode_extract"] == n_val_batches, (
         f"expected {n_val_batches} extraction launches (one per val batch)")
@@ -668,6 +701,134 @@ def val_cross_device():
     assert gaps[worst] <= STEP_LOG_RTOL, f"{worst} differs between card and CPU by {gaps[worst]}"
 
 
+def int8_agreement(got, ref, rtol):
+    """(frames with an element outside INT8_TOL + rtol * |ref|, frames,
+    max|diff|, max|diff| / max|ref|)"""
+    g, r = got.float(), ref.float()
+    diff = (g - r).abs()
+    close = diff <= INT8_TOL + rtol * r.abs()
+    outside = int((~close.all(dim=-1)).sum())
+    max_diff = float(diff.max())
+    return outside, close.shape[0] * close.shape[1], max_diff, max_diff / float(r.abs().max())
+
+
+def check_int8_kernel(fc, device):
+    """Returns the largest |kernel - twin| and the frames outside the
+    tolerance over all cases."""
+    gen = torch.Generator(device).manual_seed(3)  # drawn on the card: 22 M values a case
+    worst, frames_outside = 0.0, 0
+    for width, (c, inter) in WIDTHS.items():
+        for t in (1792, 1000, 5):
+            for dtype in (torch.float32, torch.bfloat16):
+                x, p = block_inputs(gen, 32, t, c, inter, dtype, device, weight_dtype=torch.float32)
+                got = fc.convnext_block_fused_int8(x, *p)
+                torch.cuda.synchronize()
+                ref = fc.convnext_block_int8_reference(x, *p)
+                rtol = INT8_TOL + (BF16_RTOL if dtype == torch.bfloat16 else 0.0)
+                outside, frames, max_diff, rel = int8_agreement(got, ref, rtol)
+                ok = outside <= (1 - INT8_FRAME_SHARE) * frames and rel <= INT8_ELEM_REL
+                print(f"  {width:8s} C={c} I={inter} B=32 T={t:5d} {str(dtype):15s} frames outside "
+                      f"{outside} of {frames}; bit-equal {torch.equal(got, ref)}; max|diff| "
+                      f"{max_diff:.3e}, /max|ref| {rel:.3e} (atol {INT8_TOL}, rtol {rtol:.4g}) "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    raise AssertionError(
+                        f"int8 kernel disagrees with its twin at {width} T={t} {dtype}")
+                worst = max(worst, max_diff)
+                frames_outside += outside
+    return worst, frames_outside
+
+
+def library_block_int8(x, dw_conv, lnw, lnb, w1q, s1, b1, w2q, s2, b2, gamma):
+    """The unfused int8 block as PyTorch's own operators compute it: cuDNN
+    depthwise conv, layer_norm, per-frame quantizers as elementwise ops, two
+    `torch._int_mm` products (cuBLASLt int8), gelu."""
+    f = torch.nn.functional
+    b, t, c = x.shape
+    h = f.conv1d(x.float().transpose(1, 2), dw_conv[0], dw_conv[1], padding=3,
+                 groups=c).transpose(1, 2)
+    h = f.layer_norm(h, (c,), lnw, lnb, eps=1e-6).reshape(b * t, c)
+    amax = h.abs().amax(-1, keepdim=True).clamp_min(1e-12)
+    u = torch._int_mm(torch.round(h * (127.0 / amax)).to(torch.int8), w1q).float()
+    u = f.gelu(u * (amax / 127.0) * s1 + b1, approximate="none")
+    amax = u.abs().amax(-1, keepdim=True).clamp_min(1e-12)
+    h2 = torch._int_mm(torch.round(u * (127.0 / amax)).to(torch.int8), w2q).float()
+    h2 = h2 * (amax / 127.0) * s2 + b2
+    return (x.float() + gamma * h2.reshape(b, t, c)).to(x.dtype)
+
+
+def time_int8_kernel(fc, device):
+    """Kernel, wrapper, twin and unfused-library times at the A/B's shape,
+    x in bfloat16 as the A/B runs it."""
+    gen = torch.Generator(device).manual_seed(4)
+    b, t = 32, BENCH["n_frames"]
+    rows = {}
+    for width, (c, inter) in WIDTHS.items():
+        x, p = block_inputs(gen, b, t, c, inter, torch.bfloat16, device, weight_dtype=torch.float32)
+        dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma = p
+        w1t, s1, w2t, s2 = fc.kernel_weights_int8(w1, w2)
+        kernel_args = (x, dw, dwb, lnw, lnb, w1t, s1, b1, w2t, s2, b2, gamma)
+        # torch._int_mm takes its second operand column-major: the transposed codes
+        lib_args = (x, (dw.t().contiguous()[:, None, :], dwb), lnw, lnb, w1t.t(), s1, b1,
+                    w2t.t(), s2, b2, gamma)
+        ms = time_ms(lambda: fc.convnext_block_int8_launch(*kernel_args), iters=20)
+        wrapper_ms = time_ms(lambda: fc.convnext_block_fused_int8(x, *p), iters=20)
+        plain_ms = time_ms(lambda: fc.convnext_block_int8_reference(x, *p), iters=3)
+        library_ms = time_ms(lambda: library_block_int8(*lib_args), iters=10)
+        ops = 4 * b * t * c * inter
+        nbytes = (2 * b * t * c * x.element_size()  # x read once, out written once
+                  + sum(q.numel() * q.element_size() for q in kernel_args[1:]))
+        bound_ops, bound_bytes = ops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+        rows[width] = {
+            "shape": f"B={b} T={t} C={c} I={inter} bfloat16",
+            "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(bound_ops, bound_bytes),
+            "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+            "ops": ops, "bytes": nbytes,
+        }
+        r = rows[width]
+        print(f"  {width:8s} {r['shape']}: kernel {ms:.4f} ms (wrapper, weights quantized on "
+              f"each call, {wrapper_ms:.4f} ms)  bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+              f"{ops:.3e} int8 ops, {nbytes / 1e6:.1f} MB)  twin {plain_ms:.4f} ms  library "
+              f"{library_ms:.4f} ms  -> {r['bound_ms'] / ms:.1%} of bound", flush=True)
+    return rows
+
+
+def int8_entry_point(fc):
+    """cli/int8_ab.py::main at its default shape; returns the kernels'
+    launch counts over it and the int8 trunk's error with x in float32."""
+    from optispeech_tpu_torch.cli import int8_ab
+
+    fc.convnext_block_fused.launches = 0
+    fc.convnext_block_fused_int8.launches = 0
+    res = int8_ab.main(["--batch", "32", "--t", "1792"])
+    launches = {"convnext_block_fused_int8": fc.convnext_block_fused_int8.launches,
+                "convnext_block_fused": fc.convnext_block_fused.launches}
+    calls = {arm: res[arm]["calls"] for arm in ("fused_int8", "fused_bf16")}
+    print(f"  launches {launches} over {calls} trunk calls", flush=True)
+    assert launches["convnext_block_fused_int8"] == int8_ab.N_BLOCKS * calls["fused_int8"], (
+        "expected 8 int8 kernel launches per int8 trunk call")
+    assert launches["convnext_block_fused"] == int8_ab.N_BLOCKS * calls["fused_bf16"], (
+        "expected 8 bf16 kernel launches per fused-bf16 trunk call")
+    for arm in ("xla_bf16", "fused_bf16", "fused_int8"):
+        assert res[arm]["corr"] > 0.999, f"{arm}: correlation {res[arm]['corr']} with the oracle"
+
+    # the int8 trunk on a float32 residual stream, against the same oracle
+    p = int8_ab.make_params(torch.Generator().manual_seed(0), "cuda")
+    x = (torch.randn(32, 1792, int8_ab.C, generator=torch.Generator().manual_seed(1)) * 0.5).cuda()
+    fns = int8_ab.arms(p)
+    with torch.no_grad():
+        ref = fns["oracle_f32"](x).float()
+        got = fns["fused_int8"](x).float()
+    err = float((got - ref).abs().max() / ref.abs().max())
+    print(f"  x in bfloat16 (the A/B): rel-err xla_bf16 {res['xla_bf16']['rel_err']:.4g}, "
+          f"fused_bf16 {res['fused_bf16']['rel_err']:.4g}, fused_int8 "
+          f"{res['fused_int8']['rel_err']:.4g}; x in float32: int8 trunk rel-err {err:.4g} "
+          f"(limit {INT8_AB_ERR})", flush=True)
+    assert err < INT8_AB_ERR, f"the int8 trunk is {err} of max|oracle| off the f32 oracle"
+    return launches, res, err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -677,7 +838,7 @@ def main() -> int:
     from optispeech_tpu_torch.ops import _build, mas
     from optispeech_tpu_torch.ops import fused_convnext as fc
 
-    t_start = time.perf_counter()
+    t_start = T0[0] = time.perf_counter()
     device = torch.device("cuda")
 
     phase("1. card")
@@ -736,6 +897,15 @@ def main() -> int:
     phase("11. validation cross-device (card kernels against CPU twins)")
     val_cross_device()
 
+    phase("12. int8 kernel check (kernel against twin on the card)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    int8_err, int8_frames_outside = check_int8_kernel(fc, device)
+    int8_rows = time_int8_kernel(fc, device)
+
+    phase("13. the int8 A/B at its default shape (cli/int8_ab.py::main)")
+    ab_launches, ab, ab_f32_err = int8_entry_point(fc)
+
     trunk = rows["trunk"]
     kernel = {
         "name": "convnext_block_fused", "route": "cuda",
@@ -770,8 +940,23 @@ def main() -> int:
         "bound_by": ext_row["bound_by"], "library_ms": None, "shape": ext_row["shape"],
         "binsum_rel_err": ext_err["binsum_rel"], "bin_loss_rel_err": ext_err["bin_loss_rel"],
     }
+    int8_trunk = int8_rows["trunk"]
+    int8_kernel = {
+        "name": "convnext_block_fused_int8", "route": "cuda",
+        "source": "optispeech_tpu_torch/csrc/convnext_block_int8.cu",
+        "replaces": "optispeech_tpu/ops/pallas_convnext.py:149",
+        "launches": ab_launches["convnext_block_fused_int8"],
+        "launch_path": "phase 13, cli/int8_ab.py::main (batch 32, T 1792)",
+        "max_abs_err": int8_err, "frames_outside": int8_frames_outside,
+        "ms": int8_trunk["ms"], "plain_ms": int8_trunk["plain_ms"],
+        "bound_ms": int8_trunk["bound_ms"], "bound_by": int8_trunk["bound_by"],
+        "library_ms": int8_trunk["library_ms"], "wrapper_ms": int8_trunk["wrapper_ms"],
+        "shape": int8_trunk["shape"], "other_shapes": [int8_rows["decoder"]],
+        "ab": {arm: ab[arm] for arm in ("xla_bf16", "fused_bf16", "fused_int8", "oracle_f32")},
+        "ab_int8_rel_err_x_f32": ab_f32_err,
+    }
     print(f"\n  total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [kernel, mas_kernel, extract_kernel]}))
+    print(json.dumps({"kernels": [kernel, mas_kernel, extract_kernel, int8_kernel]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,1 +1,1 @@
-"""Command-line entry points: train."""
+"""Command-line entry points: train, int8_ab."""

@@ -8,7 +8,12 @@ from .duration import (
     expand_by_duration,
     gaussian_upsample,
 )
-from .fused_convnext import convnext_block_fused, convnext_block_reference
+from .fused_convnext import (
+    convnext_block_fused,
+    convnext_block_fused_int8,
+    convnext_block_int8_reference,
+    convnext_block_reference,
+)
 from .masking import make_non_pad_mask, make_pad_mask, sequence_mask
 from .mas import (
     viterbi_decode,
@@ -43,4 +48,6 @@ __all__ = [
     "viterbi_decode_extract_reference",
     "convnext_block_fused",
     "convnext_block_reference",
+    "convnext_block_fused_int8",
+    "convnext_block_int8_reference",
 ]

@@ -1,23 +1,28 @@
-"""Fused ConvNeXt block: the CUDA kernel and its plain twin.
+"""Fused ConvNeXt blocks: the CUDA kernels and their plain twins.
 
-Port of `optispeech_tpu/ops/pallas_convnext.py::convnext_block_fused`. One
-call computes a whole inference ConvNeXt block on x (B, T, C):
-dwconv(k=7) + bias -> LayerNorm (f32, eps 1e-6) -> Dense C->I (bf16
-operands, f32 accumulation) + bias -> exact GELU -> Dense I->C (the same) +
-bias -> x + gamma * h. Parameters take the JAX function's layout: dw (7, C),
+Ports of `optispeech_tpu/ops/pallas_convnext.py`. One call computes a whole
+inference ConvNeXt block on x (B, T, C): dwconv(k=7) + bias -> LayerNorm
+(f32, eps 1e-6) -> Dense C->I + bias -> exact GELU -> Dense I->C + bias ->
+x + gamma * h. Parameters take the JAX functions' layout: dw (7, C),
 w1 (C, I), w2 (I, C).
 
-- `convnext_block_fused` is the wrapper. For a CUDA tensor it launches the
-  kernel in `csrc/convnext_block.cu` or raises; for a CPU tensor it runs
-  the twin. `convnext_block_fused.launches` counts kernel launches.
-- `convnext_block_reference` is the twin: plain PyTorch, f32 throughout,
-  with the two products on bf16-rounded operands and f32 accumulation.
-- The kernel is built with nvcc into `build/` beside the package at first
+- `convnext_block_fused` (B1, `csrc/convnext_block.cu`): both products on
+  bf16 operands with f32 accumulation. Its twin is `convnext_block_reference`.
+- `convnext_block_fused_int8` (B2, `csrc/convnext_block_int8.cu`): both
+  products int8 x int8 -> int32, with dynamic per-frame activation scales
+  (`quantize_rows_int8`) and per-output-channel weight scales
+  (`quantize_weight_int8`, applied in the wrapper); the GELU uses the
+  Abramowitz-Stegun erf of the JAX kernel (`_erf`). Its twin is
+  `convnext_block_int8_reference`.
+- Each wrapper launches its kernel for a CUDA tensor or raises, and runs its
+  twin for a CPU tensor; `<wrapper>.launches` counts kernel launches.
+- The kernels are built with nvcc into `build/` beside the package at first
   use and loaded with ctypes (`ops/_build.py`).
 """
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -86,7 +91,8 @@ def convnext_block_fused(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma):
 convnext_block_fused.launches = 0
 
 
-def _check_args(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma):
+def _check_args(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma, weight_dtype=torch.bfloat16,
+                max_inter=None):
     if x.dim() != 3 or x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"x must be (B, T, C) float32 or bfloat16, got {tuple(x.shape)} {x.dtype}")
     b, t, c = x.shape
@@ -97,11 +103,13 @@ def _check_args(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma):
         raise ValueError(f"the kernel takes C in {CHANNELS}, got {c}")
     if inter % I_CHUNK:
         raise ValueError(f"the kernel takes I a multiple of {I_CHUNK}, got {inter}")
+    if max_inter is not None and inter > max_inter:
+        raise ValueError(f"the kernel takes I up to {max_inter}, got {inter}")
     expect = {
         "dw": (dw, (7, c), torch.float32), "dwb": (dwb, (c,), torch.float32),
         "lnw": (lnw, (c,), torch.float32), "lnb": (lnb, (c,), torch.float32),
-        "w1": (w1, (c, inter), torch.bfloat16), "b1": (b1, (inter,), torch.float32),
-        "w2": (w2, (inter, c), torch.bfloat16), "b2": (b2, (c,), torch.float32),
+        "w1": (w1, (c, inter), weight_dtype), "b1": (b1, (inter,), torch.float32),
+        "w2": (w2, (inter, c), weight_dtype), "b2": (b2, (c,), torch.float32),
         "gamma": (gamma, (c,), torch.float32),
     }
     for name, (tensor, shape, dtype) in {"x": (x, tuple(x.shape), x.dtype), **expect}.items():
@@ -114,12 +122,172 @@ def _check_args(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma):
     return b, t, c, inter
 
 
+# -- int8 block (B2) -----------------------------------------------------------
+
+INT8_MAX_INTER = 1408  # the kernel keeps a (32, I) float32 tile in shared memory
+INV_127 = 1.0 / 127.0  # a Python float: float32 where it meets a float32 tensor
+INV_SQRT2 = 1.0 / math.sqrt(2.0)
+
+
+def _div(num, den):
+    """num / den, rounded once. Written as a division of two tensors on the
+    same device: `number / tensor` is a reciprocal times the number, and on
+    the card `tensor / number` is the tensor times the number's reciprocal."""
+    if not torch.is_tensor(num):
+        num = torch.full((), num, dtype=den.dtype, device=den.device)
+    if not torch.is_tensor(den):
+        den = torch.full((), den, dtype=num.dtype, device=num.device)
+    return torch.div(num, den)
+
+
+def _erf(x):
+    """Abramowitz-Stegun 7.1.26 (|err| <= 1.5e-7), the operations in the order
+    of `optispeech_tpu/ops/pallas_convnext.py::_erf`, which the int8 kernel's
+    GELU uses in place of the exact erf."""
+    a1, a2, a3 = 0.254829592, -0.284496736, 1.421413741
+    a4, a5, p = -1.453152027, 1.061405429, 0.3275911
+    s = torch.sign(x)
+    ax = torch.abs(x)
+    t = _div(1.0, 1.0 + p * ax)
+    poly = t * (a1 + t * (a2 + t * (a3 + t * (a4 + t * a5))))
+    return s * (1.0 - poly * torch.exp(-ax * ax))
+
+
+def quantize_weight_int8(w):
+    """Per-output-channel symmetric int8 quantization of a (in, out) weight:
+    (int8 codes, (out,) float32 scale) with w ~= q * scale, bit for bit the
+    JAX function's (a division by the scale, not a product by its reciprocal)."""
+    s = torch.clamp(w.abs().amax(dim=0), min=1e-12) * INV_127
+    return torch.round(w / s[None, :]).to(torch.int8), s
+
+
+def quantize_rows_int8(h):
+    """Dynamic per-row (per-frame) symmetric int8 quantization over the last
+    axis: (int8 codes, float32 scale with a trailing axis of 1), h ~= q * scale."""
+    amax = torch.clamp(h.abs().amax(dim=-1, keepdim=True), min=1e-12)
+    return torch.round(h * _div(127.0, amax)).to(torch.int8), amax * INV_127
+
+
+def _int_matmul(a, b):
+    """int8 @ int8 -> int32, exact on every device: float64 holds every
+    partial sum exactly (|sum| < 2**31 << 2**53)."""
+    return (a.double() @ b.double()).to(torch.int32)
+
+
+def _tree_sum(v):
+    """Sum over the last axis by halves, v[:n/2] + v[n/2:2(n/2)], the odd last
+    element carried: a fixed order that the kernel repeats, so the two agree
+    bit for bit on the card."""
+    while v.shape[-1] > 1:
+        n = v.shape[-1]
+        half = n // 2
+        s = v[..., :half] + v[..., half:2 * half]
+        v = torch.cat([s, v[..., n - 1:]], dim=-1) if n % 2 else s
+    return v
+
+
+def convnext_block_int8_reference(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma):
+    """Plain PyTorch twin of the int8 kernel: the JAX oracle
+    `convnext_block_int8_oracle`, line by line, in float32 and int32.
+
+    Two steps have an order of their own, which the kernel repeats: the
+    LayerNorm's row sums go by halves (`_tree_sum`, where JAX's `mean`
+    reduces in XLA's order), and its 1/sqrt is a division by a rounded
+    square root (where JAX calls `rsqrt`). Each moves h by an ulp at most.
+    """
+    t, c = x.shape[1], x.shape[2]
+    xf = x.float()
+    pad = torch.nn.functional.pad(xf, (0, 0, HALO, HALO))
+    acc = torch.zeros_like(xf)
+    for k in range(7):
+        acc = acc + pad[:, k:k + t, :] * dw[k]
+    acc = acc + dwb
+    mean = _div(_tree_sum(acc), float(c))
+    centred = acc - mean
+    var = _div(_tree_sum(centred * centred), float(c))
+    h = centred * _div(1.0, torch.sqrt(var + 1e-6)) * lnw + lnb
+
+    def qmat(h, w, b):
+        wq, ws = quantize_weight_int8(w)
+        hq, hs = quantize_rows_int8(h)
+        y = _int_matmul(hq, wq)
+        return y.float() * hs * ws + b
+
+    h1 = qmat(h, w1, b1)
+    h1 = 0.5 * h1 * (1.0 + _erf(h1 * INV_SQRT2))
+    h2 = qmat(h1, w2, b2)
+    return (xf + gamma * h2).to(x.dtype)
+
+
+def convnext_block_fused_int8(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma):
+    """Apply one int8 ConvNeXt block; the kernel on the card, the twin on the CPU.
+
+    Args as `convnext_block_fused`, but w1 (C, I) and w2 (I, C) in float32, as
+    the JAX function takes them: they are quantized here, per output channel,
+    on every call (as the JAX wrapper does in its graph). On the card every
+    parameter is float32 and contiguous, and I a multiple of 64 up to
+    INT8_MAX_INTER.
+
+    Returns (B, T, C) in x's dtype.
+    """
+    if x.device.type == "cpu":
+        return convnext_block_int8_reference(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma)
+    if x.device.type != "cuda":
+        raise ValueError(f"convnext_block_fused_int8: no kernel for device {x.device}")
+    _check_args(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma, weight_dtype=torch.float32,
+                max_inter=INT8_MAX_INTER)
+    w1t, s1, w2t, s2 = kernel_weights_int8(w1, w2)
+    return convnext_block_int8_launch(x, dw, dwb, lnw, lnb, w1t, s1, b1, w2t, s2, b2, gamma)
+
+
+convnext_block_fused_int8.launches = 0
+
+
+def kernel_weights_int8(w1, w2):
+    """The int8 kernel's weights: the codes of w1 (C, I) and w2 (I, C),
+    transposed to (I, C) and (C, I) so that each product's depth is
+    contiguous, and their per-output-channel scales (I,) and (C,)."""
+    w1q, s1 = quantize_weight_int8(w1)
+    w2q, s2 = quantize_weight_int8(w2)
+    return w1q.t().contiguous(), s1, w2q.t().contiguous(), s2
+
+
+def convnext_block_int8_launch(x, dw, dwb, lnw, lnb, w1t, s1, b1, w2t, s2, b2, gamma):
+    """Launch the int8 kernel on weights from `kernel_weights_int8`; the
+    caller has checked x and the float32 parameters (the wrapper does)."""
+    b, t, c = x.shape
+    inter = w1t.shape[0]
+    if w1t.dtype != torch.int8 or w2t.dtype != torch.int8 or tuple(w1t.shape) != (inter, c) \
+            or tuple(w2t.shape) != (c, inter) or not (w1t.is_contiguous() and w2t.is_contiguous()):
+        raise ValueError("w1t and w2t must be contiguous int8 (I, C) and (C, I)")
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = _library("convnext_block_int8").convnext_block_int8_launch(
+            x.data_ptr(), out.data_ptr(), dw.data_ptr(), dwb.data_ptr(), lnw.data_ptr(),
+            lnb.data_ptr(), w1t.data_ptr(), s1.data_ptr(), b1.data_ptr(), w2t.data_ptr(),
+            s2.data_ptr(), b2.data_ptr(), gamma.data_ptr(), b, t, c, inter,
+            int(x.dtype == torch.bfloat16), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"convnext_block_fused_int8: kernel launch failed with cudaError {err}")
+    convnext_block_fused_int8.launches += 1
+    return out
+
+
 # -- load ---------------------------------------------------------------------
 
+_ENTRY_POINTS = {  # library -> (C function, number of pointer and int arguments)
+    "convnext_block": ("convnext_block_fused_launch", 11, 5),
+    "convnext_block_int8": ("convnext_block_int8_launch", 13, 5),
+}
+
+
 @functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _build.load("convnext_block")
-    fn = lib.convnext_block_fused_launch
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+def _library(name: str = "convnext_block") -> ctypes.CDLL:
+    lib = _build.load(name)
+    fn_name, n_ptr, n_int = _ENTRY_POINTS[name]
+    fn = getattr(lib, fn_name)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib

@@ -39,6 +39,8 @@ TRAINING_MODULES = [f"optispeech_tpu_torch.{m}" for m in (
     "training.state", "training.step", "training.checkpoint", "training.trainer",
     "training.metrics", "training.loggers", "data.datamodule", "data.dsp", "utils.yamlcfg",
     "utils.pylogger", "cli.train")]
+# the int8 A/B slice
+INT8_MODULES = [f"optispeech_tpu_torch.{m}" for m in ("ops.fused_convnext", "cli.int8_ab")]
 
 # without pyyaml the CLI imports and trains a config built in code; only
 # reading a YAML file needs it
@@ -63,7 +65,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     first, imported = proc.stdout.splitlines()[:2]
     assert int(first.split()[0]) >= 35  # every module of the package was imported
-    assert set(TRAINING_MODULES) <= set(imported.split())
+    assert set(TRAINING_MODULES + INT8_MODULES) <= set(imported.split())
 
 
 def test_training_cli_imports_without_yaml():
@@ -80,8 +82,8 @@ def test_kernel_sources_are_self_contained():
 
     csrc = REPO / "optispeech_tpu_torch" / "csrc"
     sources = sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
-    assert {p.name for p in sources} >= {"convnext_block.cu", "mas_wavefront.cu",
-                                          "mas_extract.cu", "mas_forward.cuh"}
+    assert {p.name for p in sources} >= {"convnext_block.cu", "convnext_block_int8.cu",
+                                          "mas_wavefront.cu", "mas_extract.cu", "mas_forward.cuh"}
     for path in sources:
         for inc in re.findall(r'#include\s+[<"]([^>"]+)[>"]', path.read_text()):
             assert inc in {"cstdint", "stdint.h", "cuda_runtime.h", "cuda_bf16.h", "mma.h"} or (
@@ -184,6 +186,19 @@ def test_entry_points_need_a_device_when_cuda_is_absent(pair, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_train_state(cfg)
     assert init_train_state(cfg, "cpu").rng.device.type == "cpu"
+
+
+def test_int8_ab_needs_a_device_when_cuda_is_absent():
+    """`python -m optispeech_tpu_torch.cli.int8_ab` runs on the card unless
+    given `--device cpu`; with no card visible it raises rather than fall back."""
+    import os
+
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.run([sys.executable, "-m", "optispeech_tpu_torch.cli.int8_ab"], cwd=REPO,
+                          capture_output=True, text=True, timeout=300, env=env)
+    assert proc.returncode != 0
+    assert "RuntimeError: no CUDA device is available; pass device='cpu'" in proc.stderr
+    assert "fused_int8" not in proc.stdout
 
 
 def test_seeded_init_is_reproducible_and_flax_like(pair):
