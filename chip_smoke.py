@@ -5,11 +5,16 @@
 
 Phases, each of which fails the run on any error:
   1. card: name and power limit, torch and CUDA versions, TF32 off;
-  2. build: nvcc builds the kernels from csrc/ into build/;
+  2. build: nvcc builds the kernels from csrc/ into build/; for each
+     instantiation of the fused ConvNeXt-block kernel, its registers, spills
+     and shared memory (ptxas's log and the kernel's own layout);
   3. kernel check: the fused ConvNeXt-block kernel against its plain twin at
-     both model widths, T = 1792 / 1000 (ragged) / 5 (shorter than the halo),
-     x in float32 and bfloat16; then its time beside its bound, the twin's
-     time and the unfused PyTorch block's (`library_ms`, a yardstick only);
+     both model widths and at C = 128 / I = 512, B = 32, T = 1792 / 1000
+     (ragged) / 65 (one frame past a tile) / 5 (shorter than the halo) / 1, x
+     in float32 and bfloat16; then its time (on weights packed once, and
+     through the wrapper that packs them on every call) beside its bound, the
+     twin's time and the unfused PyTorch block's (`library_ms`, a yardstick
+     only), x in float32 at both widths and in bfloat16 at the trunk;
   4. main path at full width: the flagship ConvNeXt + WaveNeXt model (random
      weights, seed 0, en-g2p text front end, fused decoder and trunk) runs
      prepare_input -> synthesise on an English sentence, then
@@ -98,6 +103,7 @@ TEXT_RANGE, MEL_RANGE = (96, 193), (384, 769)
 SENTENCE = ("The birch canoe slid on the smooth planks. "
             "Glue the sheet to the dark blue background.")
 WIDTHS = {"decoder": (256, 1024), "trunk": (384, 1152)}
+CHECK_WIDTHS = {**WIDTHS, "narrow": (128, 512)}  # phase 3 also checks C = 128
 BENCH = dict(batch=32, n_tokens=120, d_factor=8.0, n_frames=1792)
 
 
@@ -143,21 +149,22 @@ def block_inputs(gen, b, t, c, inter, dtype, device, weight_dtype=torch.bfloat16
 
 def library_block(x, dw_conv, lnw, lnb, w1_t, b1, w2_t, b2, gamma):
     """The unfused block as PyTorch's own operators compute it (cuDNN
-    depthwise conv, layer_norm, two cuBLAS bf16 products, gelu)."""
+    depthwise conv in x's dtype, layer_norm in float32, two cuBLAS bf16
+    products, gelu), the residual in x's dtype."""
     f = torch.nn.functional
-    h = f.conv1d(x.transpose(1, 2), dw_conv[0], dw_conv[1], padding=3,
+    h = f.conv1d(x.transpose(1, 2), dw_conv[0].to(x.dtype), dw_conv[1].to(x.dtype), padding=3,
                  groups=x.shape[-1]).transpose(1, 2)
-    h = f.layer_norm(h, (x.shape[-1],), lnw, lnb, eps=1e-6)
+    h = f.layer_norm(h.float(), (x.shape[-1],), lnw, lnb, eps=1e-6)
     h = f.gelu(f.linear(h.bfloat16(), w1_t, b1.bfloat16()), approximate="none")
     h = f.linear(h, w2_t, b2.bfloat16())
-    return x + gamma * h.float()
+    return (x.float() + gamma * h.float()).to(x.dtype)
 
 
 def check_kernel(fc, device):
     gen = torch.Generator().manual_seed(0)
     worst = 0.0
-    for width, (c, inter) in WIDTHS.items():
-        for t in (1792, 1000, 5):
+    for width, (c, inter) in CHECK_WIDTHS.items():
+        for t in (1792, 1000, 65, 5, 1):
             for dtype in (torch.float32, torch.bfloat16):
                 x, p = block_inputs(gen, 32, t, c, inter, dtype, device)
                 got = fc.convnext_block_fused(x, *p)
@@ -178,16 +185,23 @@ def check_kernel(fc, device):
 
 
 def time_kernel(fc, device):
-    """Kernel, twin and unfused-library times at the main path's shapes."""
+    """Kernel, wrapper, twin and unfused-library times at the main path's
+    shapes: x float32 at both widths, and the trunk with x bfloat16 (the
+    A/B's fused_bf16 arm)."""
     gen = torch.Generator().manual_seed(1)
     b, t = 32, BENCH["n_frames"]
     rows = {}
-    for width, (c, inter) in WIDTHS.items():
-        x, p = block_inputs(gen, b, t, c, inter, torch.float32, device)
+    cases = [(w, ci, torch.float32) for w, ci in WIDTHS.items()]
+    cases.append(("trunk_bf16", WIDTHS["trunk"], torch.bfloat16))
+    for width, (c, inter), dtype in cases:
+        x, p = block_inputs(gen, b, t, c, inter, dtype, device)
         dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma = p
+        packed = fc.kernel_weights(w1, w2)
         lib_args = (x, (dw.t().contiguous()[:, None, :], dwb), lnw, lnb, w1.t().contiguous(),
                     b1, w2.t().contiguous(), b2, gamma)
-        ms = time_ms(lambda: fc.convnext_block_fused(x, *p), iters=20)
+        ms = time_ms(lambda: fc.convnext_block_launch(x, dw, dwb, lnw, lnb, packed, b1, b2, gamma),
+                     iters=20)
+        wrapper_ms = time_ms(lambda: fc.convnext_block_fused(x, *p), iters=20)
         plain_ms = time_ms(lambda: fc.convnext_block_reference(x, *p), iters=3)
         library_ms = time_ms(lambda: library_block(*lib_args), iters=10)
         flops = 4 * b * t * c * inter
@@ -195,17 +209,40 @@ def time_kernel(fc, device):
                   + sum(q.numel() * q.element_size() for q in p))
         bound_ops, bound_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
         rows[width] = {
-            "shape": f"B={b} T={t} C={c} I={inter} float32",
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "shape": f"B={b} T={t} C={c} I={inter} {str(dtype).removeprefix('torch.')}",
+            "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": max(bound_ops, bound_bytes),
             "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
             "flop": flops, "bytes": nbytes,
         }
         r = rows[width]
-        print(f"  {width:8s} {r['shape']}: kernel {ms:.4f} ms  bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}; {flops:.3e} FLOP, {nbytes / 1e6:.1f} MB)  twin {plain_ms:.4f} ms  "
-              f"library {library_ms:.4f} ms  -> {r['bound_ms'] / ms:.1%} of bound", flush=True)
+        print(f"  {width:10s} {r['shape']}: kernel {ms:.4f} ms (wrapper, weights packed on each "
+              f"call, {wrapper_ms:.4f} ms)  bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+              f"{flops:.3e} FLOP, {nbytes / 1e6:.1f} MB)  twin {plain_ms:.4f} ms  library "
+              f"{library_ms:.4f} ms  -> {r['bound_ms'] / ms:.1%} of bound", flush=True)
     return rows
+
+
+def ptxas_summary(log: str) -> list:
+    """Registers, spill bytes and static shared memory of each kernel that
+    ptxas's log (`-Xptxas -v`) names, in the log's order."""
+    found, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            found.append({"function": name})
+        elif name and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            found[-1]["spill_store_bytes"], found[-1]["spill_load_bytes"] = nums[1], nums[2]
+        elif name and "Used" in line and "registers" in line:
+            words = line.replace(",", " ").split()
+            found[-1]["registers"] = int(words[words.index("registers") - 1])
+            found[-1]["static_smem_bytes"] = (int(words[words.index("smem") - 2])
+                                              if "smem" in words else 0)
+    for entry in found:  # ptxas warns (C7514) where it had to serialize wgmma
+        entry["wgmma_serialized"] = any("C7514" in line and entry["function"] in line
+                                        for line in log.splitlines())
+    return found
 
 
 def flagship_config():
@@ -853,12 +890,28 @@ def main() -> int:
 
     phase("2. build")
     t_build = time.perf_counter()
-    for name, info in _build.build_kernels().items():
+    built = _build.build_kernels()
+    for name, info in built.items():
         print(f"  {name}: {info['path']} built in {info['seconds']:.1f} s")
+        if name == "convnext_block":
+            continue
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    {line.strip()}")
     print(f"  all kernels built in {time.perf_counter() - t_build:.1f} s (in parallel)")
+    layouts = {c: fc.kernel_layout(c) for c in (128, 256, 384)}
+    b1_ptxas = ptxas_summary(built["convnext_block"]["log"])
+    for entry in b1_ptxas:  # convnext_block_kernel<C, T>, mangled
+        c = next(c for c in layouts if f"ILi{c}E" in entry["function"])
+        dtype = "float32" if f"ILi{c}EfE" in entry["function"] else "bfloat16"
+        entry.update(channels=c, x_dtype=dtype, **layouts[c])
+        print(f"    B1 C={c} x {dtype}: {entry['registers']} registers, spills "
+              f"{entry['spill_store_bytes']} B stored / {entry['spill_load_bytes']} B loaded, "
+              f"shared memory {entry['smem_bytes']} B dynamic + {entry['static_smem_bytes']} B "
+              f"static, {entry['stages']} weight slots; wgmma serialized by ptxas "
+              f"{entry['wgmma_serialized']}", flush=True)
+    if not b1_ptxas and built["convnext_block"]["seconds"] > 0:
+        raise AssertionError("no ptxas report for the fused ConvNeXt-block kernel")
 
     phase("3. kernel check (kernel against twin on the card)")
     max_abs_err = check_kernel(fc, device)
@@ -915,8 +968,8 @@ def main() -> int:
         "max_abs_err": max_abs_err,
         "ms": trunk["ms"], "plain_ms": trunk["plain_ms"], "bound_ms": trunk["bound_ms"],
         "bound_by": trunk["bound_by"], "library_ms": trunk["library_ms"],
-        "shape": trunk["shape"],
-        "other_shapes": [rows["decoder"]],
+        "wrapper_ms": trunk["wrapper_ms"], "shape": trunk["shape"],
+        "other_shapes": [rows["decoder"], rows["trunk_bf16"]], "ptxas": b1_ptxas,
     }
     mas_kernel = {
         "name": "viterbi_decode", "route": "cuda",

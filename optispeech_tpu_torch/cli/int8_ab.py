@@ -74,10 +74,12 @@ def arms(p) -> dict:
     """The trunk of each arm, x -> x; the oracle last."""
     block = (p["dw"], p["dwb"], p["lnw"], p["lnb"])
     bf16 = (*block, p["w1"].bfloat16(), p["b1"], p["w2"].bfloat16(), p["b2"], p["gamma"])
+    packed = fc.kernel_weights(bf16[4], bf16[6])  # once, as the model keeps it
     f32 = (*block, p["w1"], p["b1"], p["w2"], p["b2"], p["gamma"])
     return {
         "xla_bf16": lambda x: trunk(lambda x: unfused_block(x, p, torch.bfloat16), x),
-        "fused_bf16": lambda x: trunk(lambda x: fc.convnext_block_fused(x, *bf16), x),
+        "fused_bf16": lambda x: trunk(lambda x: fc.convnext_block_fused(x, *bf16, packed=packed),
+                                      x),
         "fused_int8": lambda x: trunk(lambda x: fc.convnext_block_fused_int8(x, *f32), x),
         "oracle_f32": lambda x: trunk(lambda x: unfused_block(x, p, torch.float32), x),
     }

@@ -15,7 +15,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ...ops.fused_convnext import convnext_block_fused
+from ...ops.fused_convnext import convnext_block_fused, kernel_weights
 from .core import conv_btc
 
 
@@ -50,7 +50,8 @@ class ConvNeXtBlock(nn.Module):
 
     def forward(self, x, fused: bool = False, generator: Optional[torch.Generator] = None):
         if fused and self.gamma is not None:
-            return convnext_block_fused(x, *self.fused_params())
+            *params, packed = self.fused_params()
+            return convnext_block_fused(x, *params, packed=packed)
         h = conv_btc(self.dwconv, x)
         h = self.pwconv2(F.gelu(self.pwconv1(self.norm(h)), approximate="none"))
         if self.gamma is not None:
@@ -63,7 +64,8 @@ class ConvNeXtBlock(nn.Module):
 
     def fused_params(self):
         """The block's parameters in the kernel's layout: dw (7, C), w1 (C, I)
-        and w2 (I, C) in bf16, the rest in f32, all contiguous.
+        and w2 (I, C) in bf16, the rest in f32, all contiguous, followed by
+        the kernel's packed weights (`kernel_weights(w1, w2)`).
 
         Computed once and kept on the module; rebuilt when a parameter moves
         or is written in place (its storage or version changes)."""
@@ -81,6 +83,7 @@ class ConvNeXtBlock(nn.Module):
                     bf16(self.pwconv1.weight), f32(self.pwconv1.bias),
                     bf16(self.pwconv2.weight), f32(self.pwconv2.bias), f32(self.gamma),
                 )
+                prepared += (kernel_weights(prepared[4], prepared[6]),)
             self._fused_cache = (key, prepared)
         return self._fused_cache[1]
 

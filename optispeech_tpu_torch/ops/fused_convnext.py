@@ -2,17 +2,21 @@
 
 Ports of `optispeech_tpu/ops/pallas_convnext.py`. One call computes a whole
 inference ConvNeXt block on x (B, T, C): dwconv(k=7) + bias -> LayerNorm
-(f32, eps 1e-6) -> Dense C->I + bias -> exact GELU -> Dense I->C + bias ->
+(f32, eps 1e-6) -> Dense C->I + bias -> GELU -> Dense I->C + bias ->
 x + gamma * h. Parameters take the JAX functions' layout: dw (7, C),
-w1 (C, I), w2 (I, C).
+w1 (C, I), w2 (I, C). Both blocks compute the GELU as the JAX kernels do,
+0.5 * u * (1 + erf(u / sqrt 2)) with the Abramowitz-Stegun erf (`_erf`,
+`gelu_erf`), not the exact one.
 
 - `convnext_block_fused` (B1, `csrc/convnext_block.cu`): both products on
-  bf16 operands with f32 accumulation. Its twin is `convnext_block_reference`.
+  bf16 operands with f32 accumulation. The kernel takes its weights packed
+  once (`kernel_weights`) and is launched by `convnext_block_launch`; the
+  wrapper packs per call unless given the pack. Its twin is
+  `convnext_block_reference`.
 - `convnext_block_fused_int8` (B2, `csrc/convnext_block_int8.cu`): both
   products int8 x int8 -> int32, with dynamic per-frame activation scales
   (`quantize_rows_int8`) and per-output-channel weight scales
-  (`quantize_weight_int8`, applied in the wrapper); the GELU uses the
-  Abramowitz-Stegun erf of the JAX kernel (`_erf`). Its twin is
+  (`quantize_weight_int8`, applied in the wrapper). Its twin is
   `convnext_block_int8_reference`.
 - Each wrapper launches its kernel for a CUDA tensor or raises, and runs its
   twin for a CPU tensor; `<wrapper>.launches` counts kernel launches.
@@ -31,6 +35,37 @@ from . import _build
 HALO = 3  # k=7 depthwise conv, symmetric
 CHANNELS = (128, 256, 384)  # the kernel's template instantiations
 I_CHUNK = 64  # the kernel walks I in chunks of this width
+INV_SQRT2 = 1.0 / math.sqrt(2.0)
+
+
+def _div(num, den):
+    """num / den, rounded once. Written as a division of two tensors on the
+    same device: `number / tensor` is a reciprocal times the number, and on
+    the card `tensor / number` is the tensor times the number's reciprocal."""
+    if not torch.is_tensor(num):
+        num = torch.full((), num, dtype=den.dtype, device=den.device)
+    if not torch.is_tensor(den):
+        den = torch.full((), den, dtype=num.dtype, device=num.device)
+    return torch.div(num, den)
+
+
+def _erf(x):
+    """Abramowitz-Stegun 7.1.26 (|err| <= 1.5e-7), the operations in the order
+    of `optispeech_tpu/ops/pallas_convnext.py::_erf`, which both JAX kernels'
+    GELU uses in place of the exact erf."""
+    a1, a2, a3 = 0.254829592, -0.284496736, 1.421413741
+    a4, a5, p = -1.453152027, 1.061405429, 0.3275911
+    s = torch.sign(x)
+    ax = torch.abs(x)
+    t = _div(1.0, 1.0 + p * ax)
+    poly = t * (a1 + t * (a2 + t * (a3 + t * (a4 + t * a5))))
+    return s * (1.0 - poly * torch.exp(-ax * ax))
+
+
+def gelu_erf(u):
+    """The JAX kernels' GELU, `0.5 * u * (1 + _erf(u / sqrt 2))` in their
+    order of operations (pallas_convnext.py:74)."""
+    return 0.5 * u * (1.0 + _erf(u * INV_SQRT2))
 
 
 def convnext_block_reference(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma):
@@ -46,8 +81,7 @@ def convnext_block_reference(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma):
     centred = acc - mean
     var = (centred * centred).mean(dim=-1, keepdim=True)
     h = centred * torch.rsqrt(var + 1e-6) * lnw.float() + lnb.float()
-    h1 = _bf16_matmul(h, w1) + b1.float()
-    h1 = torch.nn.functional.gelu(h1, approximate="none")
+    h1 = gelu_erf(_bf16_matmul(h, w1) + b1.float())
     h2 = _bf16_matmul(h1, w2) + b2.float()
     return (xf + gamma.float() * h2).to(x.dtype)
 
@@ -58,7 +92,7 @@ def _bf16_matmul(a, w):
     return a.bfloat16().float() @ w.bfloat16().float()
 
 
-def convnext_block_fused(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma):
+def convnext_block_fused(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma, *, packed=None):
     """Apply one ConvNeXt block; the kernel on the card, the twin on the CPU.
 
     Args:
@@ -66,6 +100,8 @@ def convnext_block_fused(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma):
         dw: (7, C) depthwise kernel; dwb, lnw, lnb, b2, gamma: (C,).
         w1: (C, I); b1: (I,); w2: (I, C). On the card w1 and w2 must be
             bfloat16 and every other parameter float32, all contiguous.
+        packed: `kernel_weights(w1, w2)`, if the caller keeps it; otherwise
+            the weights are packed on each call on the card. Ignored on the CPU.
 
     Returns (B, T, C) in x's dtype.
     """
@@ -73,14 +109,65 @@ def convnext_block_fused(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma):
         return convnext_block_reference(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma)
     if x.device.type != "cuda":
         raise ValueError(f"convnext_block_fused: no kernel for device {x.device}")
-    b, t, c, inter = _check_args(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma)
+    _check_args(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma)
+    if packed is None:
+        packed = kernel_weights(w1, w2)
+    return convnext_block_launch(x, dw, dwb, lnw, lnb, packed, b1, b2, gamma)
+
+
+convnext_block_fused.launches = 0
+
+SWIZZLE_GROUPS = 8  # 16-byte groups in one 128-byte row of a kernel operand
+
+
+def kernel_weights(w1, w2):
+    """B1's weights as the kernel copies them into shared memory:
+    (I / 64, 2, C, 64) bfloat16, for each 64-wide chunk j of I the image of
+    the W1 chunk w1[:, 64j : 64j + 64] and then that of the W2 chunk
+    w2[64j : 64j + 64, :].
+
+    Each image is C rows of 64 bf16 (128 bytes), K-major, as the kernel's
+    wgmma descriptors read it: row 64 kb + n of the W1 image holds
+    w1[64 kb : 64 kb + 64, 64 j + n] (the depth C in blocks of 64), row c of
+    the W2 image holds w2[64 j : 64 j + 64, c]. In row r the 16-byte group g
+    is stored at g ^ (r % 8) (the 128-byte swizzle). One bulk copy moves a
+    whole image into a slot of the kernel's ring."""
+    c, inter = w1.shape
+    n = inter // I_CHUNK
+    w1b, w2b = w1.detach().to(torch.bfloat16), w2.detach().to(torch.bfloat16)
+    img1 = w1b.reshape(c // I_CHUNK, I_CHUNK, n, I_CHUNK).permute(2, 0, 3, 1).reshape(n, c, I_CHUNK)
+    img2 = w2b.reshape(n, I_CHUNK, c).permute(0, 2, 1)
+    groups = torch.stack([img1, img2], dim=1).reshape(n, 2, c, SWIZZLE_GROUPS, -1)
+    rows = torch.arange(c, device=w1.device)[:, None] % SWIZZLE_GROUPS
+    logical = torch.arange(SWIZZLE_GROUPS, device=w1.device)[None, :] ^ rows  # (C, 8)
+    index = logical[None, None, :, :, None].expand_as(groups)
+    return groups.gather(3, index).reshape(n, 2, c, I_CHUNK).contiguous()
+
+
+def _check_packed(x, packed, b1):
+    c, inter = x.shape[-1], b1.shape[0]
+    shape = (inter // I_CHUNK, 2, c, I_CHUNK)
+    if packed.dtype != torch.bfloat16 or tuple(packed.shape) != shape or inter % I_CHUNK:
+        raise ValueError(f"packed must be kernel_weights' {shape} bfloat16, got "
+                         f"{tuple(packed.shape)} {packed.dtype}")
+    if packed.device != x.device or not packed.is_contiguous():
+        raise ValueError("packed must be contiguous and on x's device")
+
+
+def convnext_block_launch(x, dw, dwb, lnw, lnb, packed, b1, b2, gamma):
+    """Launch B1 on weights from `kernel_weights`; the caller has checked x
+    and the float32 parameters (the wrapper does)."""
+    _check_packed(x, packed, b1)
+    if x.device.type != "cuda":
+        raise ValueError(f"convnext_block_launch: no kernel for device {x.device}")
+    b, t, c = x.shape
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = _library().convnext_block_fused_launch(
             x.data_ptr(), out.data_ptr(), dw.data_ptr(), dwb.data_ptr(), lnw.data_ptr(),
-            lnb.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            gamma.data_ptr(), b, t, c, inter, int(x.dtype == torch.bfloat16), stream,
+            lnb.data_ptr(), packed.data_ptr(), b1.data_ptr(), b2.data_ptr(), gamma.data_ptr(),
+            b, t, c, b1.shape[0], int(x.dtype == torch.bfloat16), stream,
         )
     if err != 0:
         raise RuntimeError(f"convnext_block_fused: kernel launch failed with cudaError {err}")
@@ -88,7 +175,12 @@ def convnext_block_fused(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma):
     return out
 
 
-convnext_block_fused.launches = 0
+def kernel_layout(channels: int) -> dict:
+    """B1's dynamic shared memory per block and weight slots at `channels`,
+    as the built kernel reports them."""
+    lib = _library()
+    return {"smem_bytes": lib.convnext_block_smem_bytes(channels),
+            "stages": lib.convnext_block_stages(channels)}
 
 
 def _check_args(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma, weight_dtype=torch.bfloat16,
@@ -126,31 +218,6 @@ def _check_args(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma, weight_dtype=torch.
 
 INT8_MAX_INTER = 1408  # the kernel keeps a (32, I) float32 tile in shared memory
 INV_127 = 1.0 / 127.0  # a Python float: float32 where it meets a float32 tensor
-INV_SQRT2 = 1.0 / math.sqrt(2.0)
-
-
-def _div(num, den):
-    """num / den, rounded once. Written as a division of two tensors on the
-    same device: `number / tensor` is a reciprocal times the number, and on
-    the card `tensor / number` is the tensor times the number's reciprocal."""
-    if not torch.is_tensor(num):
-        num = torch.full((), num, dtype=den.dtype, device=den.device)
-    if not torch.is_tensor(den):
-        den = torch.full((), den, dtype=num.dtype, device=num.device)
-    return torch.div(num, den)
-
-
-def _erf(x):
-    """Abramowitz-Stegun 7.1.26 (|err| <= 1.5e-7), the operations in the order
-    of `optispeech_tpu/ops/pallas_convnext.py::_erf`, which the int8 kernel's
-    GELU uses in place of the exact erf."""
-    a1, a2, a3 = 0.254829592, -0.284496736, 1.421413741
-    a4, a5, p = -1.453152027, 1.061405429, 0.3275911
-    s = torch.sign(x)
-    ax = torch.abs(x)
-    t = _div(1.0, 1.0 + p * ax)
-    poly = t * (a1 + t * (a2 + t * (a3 + t * (a4 + t * a5))))
-    return s * (1.0 - poly * torch.exp(-ax * ax))
 
 
 def quantize_weight_int8(w):
@@ -213,9 +280,7 @@ def convnext_block_int8_reference(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma):
         y = _int_matmul(hq, wq)
         return y.float() * hs * ws + b
 
-    h1 = qmat(h, w1, b1)
-    h1 = 0.5 * h1 * (1.0 + _erf(h1 * INV_SQRT2))
-    h2 = qmat(h1, w2, b2)
+    h2 = qmat(gelu_erf(qmat(h, w1, b1)), w2, b2)
     return (xf + gamma * h2).to(x.dtype)
 
 
@@ -278,7 +343,7 @@ def convnext_block_int8_launch(x, dw, dwb, lnw, lnb, w1t, s1, b1, w2t, s2, b2, g
 # -- load ---------------------------------------------------------------------
 
 _ENTRY_POINTS = {  # library -> (C function, number of pointer and int arguments)
-    "convnext_block": ("convnext_block_fused_launch", 11, 5),
+    "convnext_block": ("convnext_block_fused_launch", 10, 5),
     "convnext_block_int8": ("convnext_block_int8_launch", 13, 5),
 }
 

@@ -1,7 +1,7 @@
-"""Fused ConvNeXt block of the port: its plain twin against the JAX Pallas
-kernel (interpret mode on the CPU), the fused backbones of both packages,
-the wrapper's argument checks, and, where a card exists, the CUDA kernel
-against its twin.
+"""Fused ConvNeXt block of the port: its plain twin and its GELU against the
+JAX Pallas kernel (interpret mode on the CPU), the fused backbones of both
+packages, the kernel's weight pack, the wrapper's argument checks, and,
+where a card exists, the CUDA kernel against its twin.
 
 The JAX side is imported inside the tests that use it, so that on a machine
 with a card and without JAX the kernel test still collects:
@@ -50,6 +50,85 @@ def test_twin_matches_jax_interpret_kernel(t_tile):
     np.testing.assert_allclose(got.numpy(), np.asarray(expect), atol=ATOL)
 
 
+def test_twin_gelu_is_the_jax_kernels():
+    """`gelu_erf` against `_block_kernel`'s expression (pallas_convnext.py:74)
+    on [-8, 8], within one float32 ulp of |x|: the two differ only where
+    exp(-x*x) does (by an ulp between XLA and PyTorch), and where erf nears
+    -1 the sum 1 + erf cancels, so the gap there is 0.5 |x| times an ulp of
+    1.0, not an ulp of the result."""
+    import jax.numpy as jnp
+
+    from optispeech_tpu.ops.pallas_convnext import _erf
+
+    x = np.concatenate([np.linspace(-8.0, 8.0, 400001), [0.0, 1e-30, -1e-30]]).astype(np.float32)
+    xj = jnp.asarray(x)
+    expect = np.asarray(0.5 * xj * (1.0 + _erf(xj * np.float32(1.0 / np.sqrt(2.0)))))
+    got = fc.gelu_erf(torch.from_numpy(x)).numpy()
+    assert got.dtype == np.float32
+    assert (np.abs(got - expect) <= np.spacing(np.abs(x))).all()
+    np.testing.assert_array_equal(got[x == 0.0], 0.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,inter", [(256, 1024), (384, 1152)])
+def test_twin_matches_jax_interpret_kernel_at_model_widths(c, inter, dtype):
+    """The decoder's and the trunk's widths, one 128-frame tile."""
+    import jax.numpy as jnp
+
+    from optispeech_tpu.ops.pallas_convnext import convnext_block_fused as jax_block
+
+    x, params = _block_args(np.random.default_rng(c + inter), 1, 128, c, inter, dtype)
+    xj = jnp.asarray(x.float().numpy()).astype(jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32)
+    expect = jax_block(xj, *[jnp.asarray(p.numpy()) for p in params], t_tile=128, interpret=True)
+    got = fc.convnext_block_fused(x, *params)
+    assert got.dtype == dtype and got.shape == x.shape
+    expect = np.asarray(expect, np.float32)
+    rtol = BF16_RTOL if dtype == torch.bfloat16 else 0.0
+    np.testing.assert_allclose(got.float().numpy(), expect, atol=ATOL, rtol=rtol)
+
+
+def _swizzled(e):
+    """Element offset -> its place in a 128-byte-swizzled image: the 8-element
+    group within each 64-element row XORed with the row's index mod 8."""
+    return e ^ (((e >> 6) & 7) << 3)
+
+
+@pytest.mark.parametrize("c,inter", [(128, 256), (256, 1024), (384, 1152)])
+def test_kernel_weights_invert_to_w1_and_w2(c, inter):
+    """Every weight read back from the pack by the layout the kernel's
+    descriptors name, element by element, equals its bf16 value."""
+    rng = np.random.default_rng(c)
+    w1 = torch.from_numpy(rng.normal(size=(c, inter)).astype(np.float32))
+    w2 = torch.from_numpy(rng.normal(size=(inter, c)).astype(np.float32))
+    packed = fc.kernel_weights(w1, w2)
+    assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
+    assert tuple(packed.shape) == (inter // 64, 2, c, 64)
+    flat = packed.float().numpy().reshape(inter // 64, 2, c * 64)
+    k, i = np.meshgrid(np.arange(c), np.arange(inter), indexing="ij")  # w1[k, i]
+    got1 = flat[i // 64, 0, _swizzled(((k // 64) * 64 + i % 64) * 64 + k % 64)]
+    np.testing.assert_array_equal(got1, w1.bfloat16().float().numpy())
+    i, cc = np.meshgrid(np.arange(inter), np.arange(c), indexing="ij")  # w2[i, c]
+    got2 = flat[i // 64, 1, _swizzled(cc * 64 + i % 64)]
+    np.testing.assert_array_equal(got2, w2.bfloat16().float().numpy())
+
+
+def test_fused_params_repack_after_an_in_place_write():
+    from optispeech_tpu_torch.models.modules.convnext import ConvNeXtBlock
+
+    torch.manual_seed(0)
+    block = ConvNeXtBlock(128, 256, layer_scale_init_value=0.25)
+    packed = block.fused_params()[-1]
+    assert block.fused_params()[-1] is packed  # kept while nothing changes
+    with torch.no_grad():
+        block.pwconv1.weight.mul_(2.0)
+    repacked = block.fused_params()[-1]
+    assert repacked is not packed
+    w1 = block.pwconv1.weight.detach().t().bfloat16()
+    w2 = block.pwconv2.weight.detach().t().bfloat16()
+    assert torch.equal(repacked, fc.kernel_weights(w1, w2))
+    assert not torch.equal(repacked, packed)
+
+
 @pytest.fixture(scope="module")
 def decoder_pair():
     from torch_parity import build_pair, small_config
@@ -95,12 +174,25 @@ def test_fused_backbone_matches_jax_fused_backbone(decoder_pair, monkeypatch, ma
 
 
 @pytest.mark.parametrize("case", ["channels", "inter", "dtype", "weight_dtype", "shape",
-                                  "contiguous", "empty"])
+                                  "contiguous", "empty", "packed_shape", "packed_dtype",
+                                  "packed_contiguous"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(case):
     c, inter = 256, 1024
     x, p = _block_args(np.random.default_rng(0), 1, 9, c, inter)
     p[4], p[6] = p[4].bfloat16(), p[6].bfloat16()
     fc._check_args(x, *p)  # the valid set passes
+    packed = fc.kernel_weights(p[4], p[6])
+    fc._check_packed(x, packed, p[5])
+    if case.startswith("packed"):  # the launch checks the pack before it touches a card
+        if case == "packed_shape":
+            packed = packed[:-1]
+        elif case == "packed_dtype":
+            packed = packed.float()
+        else:
+            packed = packed.transpose(2, 3).contiguous().transpose(2, 3)
+        with pytest.raises(ValueError, match="packed"):
+            fc.convnext_block_launch(x, *p[:4], packed, p[5], p[7], p[8])
+        return
     if case == "channels":
         x, p = _block_args(np.random.default_rng(0), 1, 9, 192, inter)
         p[4], p[6] = p[4].bfloat16(), p[6].bfloat16()
@@ -131,6 +223,31 @@ def test_kernel_matches_twin_on_cuda(cuda, dtype, c, inter, t):
     p[4], p[6] = p[4].bfloat16(), p[6].bfloat16()
     launches = fc.convnext_block_fused.launches
     got = fc.convnext_block_fused(x, *p)
+    torch.cuda.synchronize()
+    assert fc.convnext_block_fused.launches == launches + 1
+    ref = fc.convnext_block_reference(x, *p)
+    assert got.dtype == dtype and got.shape == x.shape
+    rtol = BF16_RTOL if dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(got.float(), ref.float(), atol=ATOL, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,inter,b,t", [
+    (384, 1152, 1, 1), (384, 1152, 1, 63), (384, 1152, 1, 65), (256, 1024, 2, 127),
+    (256, 1024, 2, 129), (128, 512, 1, 200), (128, 512, 3, 65),
+    (384, 1152, 48, 1792),  # 1344 tiles: ten per SM
+])
+def test_kernel_matches_twin_on_cuda_at_tile_edges(cuda, dtype, c, inter, b, t):
+    """T one frame either side of the 64-frame tile, B = 1, C = 128, and a
+    grid that outnumbers the SMs many times over; the pack made once, as the
+    model keeps it."""
+    x, p = _block_args(np.random.default_rng(b * t + c), b, t, c, inter, dtype)
+    x = x.to(cuda)
+    p = [q.to(cuda) for q in p]
+    p[4], p[6] = p[4].bfloat16(), p[6].bfloat16()
+    packed = fc.kernel_weights(p[4], p[6])
+    launches = fc.convnext_block_fused.launches
+    got = fc.convnext_block_fused(x, *p, packed=packed)
     torch.cuda.synchronize()
     assert fc.convnext_block_fused.launches == launches + 1
     ref = fc.convnext_block_reference(x, *p)
