@@ -6,20 +6,28 @@
 Phases, each of which fails the run on any error:
   1. card: name and power limit, torch and CUDA versions, TF32 off;
   2. build: nvcc builds the kernels from csrc/ into build/; for each
-     instantiation of the fused ConvNeXt-block kernel, its registers, spills
-     and shared memory (ptxas's log and the kernel's own layout);
+     instantiation of the two fused ConvNeXt-block kernels (B1 and B2), its
+     registers, spills, shared memory, weight slots and whether ptxas
+     serialized its wgmma (ptxas's log and the kernel's own layout);
   3. kernel check: the fused ConvNeXt-block kernel against its plain twin at
      both model widths and at C = 128 / I = 512, B = 32, T = 1792 / 1000
      (ragged) / 65 (one frame past a tile) / 5 (shorter than the halo) / 1, x
-     in float32 and bfloat16; then its time (on weights packed once, and
-     through the wrapper that packs them on every call) beside its bound, the
-     twin's time and the unfused PyTorch block's (`library_ms`, a yardstick
-     only), x in float32 at both widths and in bfloat16 at the trunk;
+     in float32 and bfloat16, and at the other widths it takes (C = 64, 192,
+     320, 448, 512, and C = 96, 97 and 500, which it pads to a multiple of
+     64) at T = 1792 / 65 / 1; then its time (on weights packed once, and
+     through the wrapper that packs them on every call) beside its bound,
+     the twin's time and the unfused PyTorch block's (`library_ms`, a
+     yardstick only), x in float32 at both widths and in bfloat16 at the
+     trunk, and x in float32 and bfloat16 at C = 448 and 512;
   4. main path at full width: the flagship ConvNeXt + WaveNeXt model (random
      weights, seed 0, en-g2p text front end, fused decoder and trunk) runs
      prepare_input -> synthesise on an English sentence, then
      synthesise_on_device at bench.py's shape (batch 32, 120 tokens,
-     d_factor 8, 1792 frames); the kernel must launch 12 times per decode;
+     d_factor 8, 1792 frames); the kernel must launch 12 times per decode.
+     Then the same model at `generator.dim: 192` (decoder 192/1024) runs
+     synthesise_on_device on the card and on the CPU (the twin), batch 2 at
+     256 frames: equal durations, wav within WAV_ATOL, and how many of its
+     blocks took the kernel by the shape rule (`kernel_takes`);
   5. cross-device: the same weights on the card and on the CPU (where the
      block runs its twin), batch 2 at 256 frames: equal durations, close wav;
   6. MAS kernel check: the wavefront MAS kernel against its plain twin at
@@ -50,16 +58,22 @@ Phases, each of which fails the run on any error:
      card and on the CPU (the twins), batch 4: equal durations, every log
      close;
  12. int8 kernel check: the int8 fused ConvNeXt-block kernel against its
-     plain twin at both model widths, B = 32, T = 1792 / 1000 / 5, x in
-     float32 and bfloat16: at least 99% of frames within atol = rtol = 1e-5
-     (plus 2 * 2**-7 relative for a bfloat16 output) and every element within
-     1e-2 of max|twin|; then its time (x bfloat16, the A/B's type) beside its
-     bound (int8 operations), the twin's time and the unfused int8 block
-     with `torch._int_mm` products (`library_ms`, a yardstick only);
+     plain twin at both model widths, B = 32, T = 1792 / 1000 / 5, and B = 1,
+     T = 1 / 63 / 65 / 129, x in float32 and bfloat16: bit-equal in every
+     case (and so within the frame criterion: at least 99% of frames within
+     atol = rtol = 1e-5, plus 2 * 2**-7 relative for a bfloat16 output, every
+     element within 1e-2 of max|twin|); then its time (x bfloat16, the A/B's
+     type; on a pack made once, through the wrapper on that pack, and
+     through the wrapper packing per call) beside its bound (int8
+     operations), the twin's time, the unfused int8 block with
+     `torch._int_mm` products (`library_ms`, a yardstick only) and the time
+     of B2's previous (mma.sync) design as PERF.md records it (printed
+     only: it is not measured here, so the kernels line leaves it out);
  13. the int8 A/B at its default shape: `cli/int8_ab.py::main` at batch 32,
      T 1792, every arm (8-block trunks at 384/1152); the int8 kernel must
      launch 8 times per int8 trunk call and the bf16 kernel 8 times per
-     fused-bf16 call. With x in bfloat16 every arm's error against the f32
+     fused-bf16 call, and each fused arm packs its weights once. With x in
+     bfloat16 every arm's error against the f32
      oracle is set by the bfloat16 residual stream (the updates a block adds
      below half a bfloat16 step are lost), so the int8 trunk is also run
      with x in float32 and held under 0.02 of max|oracle| there.
@@ -71,6 +85,7 @@ it, it exits non-zero and prints no result.
 
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -104,6 +119,18 @@ SENTENCE = ("The birch canoe slid on the smooth planks. "
             "Glue the sheet to the dark blue background.")
 WIDTHS = {"decoder": (256, 1024), "trunk": (384, 1152)}
 CHECK_WIDTHS = {**WIDTHS, "narrow": (128, 512)}  # phase 3 also checks C = 128
+# phase 3: the other widths B1 takes (C = 192 with the decoder's I, as in
+# phase 4's model; else I = 4C), at T = 1792 / 65 / 1; then widths that are
+# no multiple of 64, which B1 pads to the next (C' = 128, 128, 512): C = 96,
+# C = 97 with an odd I (rows that are not 16-byte aligned) and C = 500
+NEW_WIDTHS = {"c64": (64, 256), "c192": (192, 1024), "c320": (320, 1280), "c448": (448, 1792),
+              "c512": (512, 2048), "c96": (96, 384), "c97": (97, 291), "c500": (500, 1000)}
+# phase 3 times these beside the model widths: the two widest, whose
+# prologue takes two frames at a time
+TIMED_WIDTHS = {"c448": NEW_WIDTHS["c448"], "c512": NEW_WIDTHS["c512"]}
+# B2's times in its previous (mma.sync) design, same card type (PERF.md, kernel
+# table): printed beside this run's times, and kept out of the kernels line
+PREVIOUS_INT8_MS = {"trunk": 1.5017, "decoder": 1.1428}
 BENCH = dict(batch=32, n_tokens=120, d_factor=8.0, n_frames=1792)
 
 
@@ -163,8 +190,10 @@ def library_block(x, dw_conv, lnw, lnb, w1_t, b1, w2_t, b2, gamma):
 def check_kernel(fc, device):
     gen = torch.Generator().manual_seed(0)
     worst = 0.0
-    for width, (c, inter) in CHECK_WIDTHS.items():
-        for t in (1792, 1000, 65, 5, 1):
+    cases = [(w, ci, (1792, 1000, 65, 5, 1)) for w, ci in CHECK_WIDTHS.items()]
+    cases += [(w, ci, (1792, 65, 1)) for w, ci in NEW_WIDTHS.items()]
+    for width, (c, inter), ts in cases:
+        for t in ts:
             for dtype in (torch.float32, torch.bfloat16):
                 x, p = block_inputs(gen, 32, t, c, inter, dtype, device)
                 got = fc.convnext_block_fused(x, *p)
@@ -193,6 +222,8 @@ def time_kernel(fc, device):
     rows = {}
     cases = [(w, ci, torch.float32) for w, ci in WIDTHS.items()]
     cases.append(("trunk_bf16", WIDTHS["trunk"], torch.bfloat16))
+    cases += [(f"{w}{suffix}", ci, dtype) for w, ci in TIMED_WIDTHS.items()
+              for suffix, dtype in (("", torch.float32), ("_bf16", torch.bfloat16))]
     for width, (c, inter), dtype in cases:
         x, p = block_inputs(gen, b, t, c, inter, dtype, device)
         dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma = p
@@ -242,6 +273,30 @@ def ptxas_summary(log: str) -> list:
     for entry in found:  # ptxas warns (C7514) where it had to serialize wgmma
         entry["wgmma_serialized"] = any("C7514" in line and entry["function"] in line
                                         for line in log.splitlines())
+    return found
+
+
+def fused_ptxas(info, label, channels, layout):
+    """Print and return ptxas's report (`ptxas_summary`) for each
+    instantiation of a fused-block kernel, with the kernel's own layout;
+    fail if a kernel that was built has no report."""
+    layouts = {c: layout(c) for c in channels}
+    found = ptxas_summary(info["log"])
+    for entry in found:  # <kernel>ILi<C>E[Lb<padded>E]<T>E, mangled
+        fn = entry["function"]
+        c = next(c for c in layouts if f"ILi{c}E" in fn)
+        dtype = "float32" if re.search(rf"ILi{c}E(Lb[01]E)?fE", fn) else "bfloat16"
+        entry.update(channels=c, x_dtype=dtype, **layouts[c])
+        if "Lb1E" in fn or "Lb0E" in fn:  # B1: C below C' read element by element
+            entry["padded"] = "Lb1E" in fn
+        tag = " (C < C', padded)" if entry.get("padded") else ""
+        print(f"    {label} C={c}{tag} x {dtype}: {entry['registers']} registers, spills "
+              f"{entry['spill_store_bytes']} B stored / {entry['spill_load_bytes']} B loaded, "
+              f"shared memory {entry['smem_bytes']} B dynamic + {entry['static_smem_bytes']} B "
+              f"static, {entry['stages']} weight slots; wgmma serialized by ptxas "
+              f"{entry['wgmma_serialized']}", flush=True)
+    if not found and info["seconds"] > 0:
+        raise AssertionError(f"no ptxas report for {label}")
     return found
 
 
@@ -331,6 +386,45 @@ def cross_device(api):
           flush=True)
     assert dur_equal, "durations differ between card and CPU"
     assert wav_diff <= WAV_ATOL, f"wav differs between card and CPU by {wav_diff}"
+
+
+def dim192_model(fc):
+    """The flagship model at `generator.dim: 192`, fused, on the card against
+    the CPU (its twin): batch 2 at 256 frames. Returns the launches of the
+    card's call and how many of its blocks the shape rule gave the kernel."""
+    import dataclasses
+
+    from optispeech_tpu_torch.models.optispeech import OptiSpeech
+
+    cfg = flagship_config()
+    cfg = dataclasses.replace(cfg, generator=dataclasses.replace(cfg.generator, dim=192))
+    api = OptiSpeech(cfg, seed=0, device="cuda")
+    cpu_api = OptiSpeech(cfg, device="cpu",
+                         state_dict={k: v.cpu() for k, v in api.generator.state_dict().items()})
+    gen = api.generator
+    blocks = [*(gen.decoder.convnext if gen.decoder.fused_pallas else []),
+              *(gen.vocoder.backbone.convnext if gen.vocoder.fused_pallas else [])]
+    taken = sum(fc.kernel_takes(256, b.pwconv1.in_features, b.pwconv1.out_features)
+                for b in blocks)
+    widths = sorted({(b.pwconv1.in_features, b.pwconv1.out_features) for b in blocks})
+    inputs = api.prepare_input(SENTENCE)
+    fc.convnext_block_fused.launches = 0
+    gpu = api.synthesise_on_device(inputs, 256)
+    torch.cuda.synchronize()
+    launches = fc.convnext_block_fused.launches
+    cpu = cpu_api.synthesise_on_device(inputs, 256)
+    dur_equal = torch.equal(gpu["durations"].cpu(), cpu["durations"])
+    wav_diff = float((gpu["wav"].cpu() - cpu["wav"]).abs().max())
+    print(f"  generator.dim 192: fused blocks at (C, I) {widths}: {taken} of {len(blocks)} take the "
+          f"kernel by the shape rule, {len(blocks) - taken} run unfused; kernel launches in one "
+          f"decode {launches}", flush=True)
+    print(f"  batch 2, 256 frames: durations equal {dur_equal}; wav max|card - cpu| {wav_diff:.3e} "
+          f"(atol {WAV_ATOL}); |wav| max {float(cpu['wav'].abs().max()):.3f}", flush=True)
+    assert dur_equal, "dim 192: durations differ between card and CPU"
+    assert wav_diff <= WAV_ATOL, f"dim 192: wav differs between card and CPU by {wav_diff}"
+    assert launches == taken, f"expected {taken} kernel launches in one decode, got {launches}"
+    assert bool(torch.isfinite(gpu["wav"]).all())
+    return launches, taken
 
 
 def mas_lengths(rng, b, t_feats, t_text):
@@ -751,26 +845,28 @@ def int8_agreement(got, ref, rtol):
 
 def check_int8_kernel(fc, device):
     """Returns the largest |kernel - twin| and the frames outside the
-    tolerance over all cases."""
+    tolerance over all cases; fails unless every case is bit-equal."""
     gen = torch.Generator(device).manual_seed(3)  # drawn on the card: 22 M values a case
     worst, frames_outside = 0.0, 0
+    cases = [(32, t) for t in (1792, 1000, 5)] + [(1, t) for t in (1, 63, 65, 129)]
     for width, (c, inter) in WIDTHS.items():
-        for t in (1792, 1000, 5):
+        for b, t in cases:
             for dtype in (torch.float32, torch.bfloat16):
-                x, p = block_inputs(gen, 32, t, c, inter, dtype, device, weight_dtype=torch.float32)
+                x, p = block_inputs(gen, b, t, c, inter, dtype, device, weight_dtype=torch.float32)
                 got = fc.convnext_block_fused_int8(x, *p)
                 torch.cuda.synchronize()
                 ref = fc.convnext_block_int8_reference(x, *p)
                 rtol = INT8_TOL + (BF16_RTOL if dtype == torch.bfloat16 else 0.0)
                 outside, frames, max_diff, rel = int8_agreement(got, ref, rtol)
-                ok = outside <= (1 - INT8_FRAME_SHARE) * frames and rel <= INT8_ELEM_REL
-                print(f"  {width:8s} C={c} I={inter} B=32 T={t:5d} {str(dtype):15s} frames outside "
-                      f"{outside} of {frames}; bit-equal {torch.equal(got, ref)}; max|diff| "
+                equal = torch.equal(got, ref)
+                ok = equal and outside <= (1 - INT8_FRAME_SHARE) * frames and rel <= INT8_ELEM_REL
+                print(f"  {width:8s} C={c} I={inter} B={b:2d} T={t:5d} {str(dtype):15s} frames outside "
+                      f"{outside} of {frames}; bit-equal {equal}; max|diff| "
                       f"{max_diff:.3e}, /max|ref| {rel:.3e} (atol {INT8_TOL}, rtol {rtol:.4g}) "
                       f"{'ok' if ok else 'FAIL'}", flush=True)
                 if not ok:
                     raise AssertionError(
-                        f"int8 kernel disagrees with its twin at {width} T={t} {dtype}")
+                        f"int8 kernel disagrees with its twin at {width} B={b} T={t} {dtype}")
                 worst = max(worst, max_diff)
                 frames_outside += outside
     return worst, frames_outside
@@ -795,39 +891,46 @@ def library_block_int8(x, dw_conv, lnw, lnb, w1q, s1, b1, w2q, s2, b2, gamma):
 
 
 def time_int8_kernel(fc, device):
-    """Kernel, wrapper, twin and unfused-library times at the A/B's shape,
-    x in bfloat16 as the A/B runs it."""
+    """Kernel (on a pack made once), wrapper (on that pack, and packing per
+    call), twin and unfused-library times at the A/B's shape, x in bfloat16
+    as the A/B runs it."""
     gen = torch.Generator(device).manual_seed(4)
     b, t = 32, BENCH["n_frames"]
     rows = {}
     for width, (c, inter) in WIDTHS.items():
         x, p = block_inputs(gen, b, t, c, inter, torch.bfloat16, device, weight_dtype=torch.float32)
         dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma = p
-        w1t, s1, w2t, s2 = fc.kernel_weights_int8(w1, w2)
-        kernel_args = (x, dw, dwb, lnw, lnb, w1t, s1, b1, w2t, s2, b2, gamma)
-        # torch._int_mm takes its second operand column-major: the transposed codes
-        lib_args = (x, (dw.t().contiguous()[:, None, :], dwb), lnw, lnb, w1t.t(), s1, b1,
-                    w2t.t(), s2, b2, gamma)
-        ms = time_ms(lambda: fc.convnext_block_int8_launch(*kernel_args), iters=20)
+        packed = fc.kernel_weights_int8(w1, w2)
+        (w1q, s1), (w2q, s2) = fc.quantize_weight_int8(w1), fc.quantize_weight_int8(w2)
+        # torch._int_mm takes its second operand column-major
+        lib_args = (x, (dw.t().contiguous()[:, None, :], dwb), lnw, lnb, w1q.t().contiguous().t(),
+                    s1, b1, w2q.t().contiguous().t(), s2, b2, gamma)
+        ms = time_ms(lambda: fc.convnext_block_int8_launch(x, dw, dwb, lnw, lnb, packed, b1, b2,
+                                                           gamma), iters=20)
+        cached_ms = time_ms(lambda: fc.convnext_block_fused_int8(x, *p, packed=packed), iters=20)
         wrapper_ms = time_ms(lambda: fc.convnext_block_fused_int8(x, *p), iters=20)
         plain_ms = time_ms(lambda: fc.convnext_block_int8_reference(x, *p), iters=3)
         library_ms = time_ms(lambda: library_block_int8(*lib_args), iters=10)
         ops = 4 * b * t * c * inter
         nbytes = (2 * b * t * c * x.element_size()  # x read once, out written once
-                  + sum(q.numel() * q.element_size() for q in kernel_args[1:]))
+                  + sum(q.numel() * q.element_size() for q in (dw, dwb, lnw, lnb, b1, b2, gamma))
+                  + sum(q.numel() * q.element_size() for q in packed))
         bound_ops, bound_bytes = ops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
         rows[width] = {
             "shape": f"B={b} T={t} C={c} I={inter} bfloat16",
-            "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "ms": ms, "wrapper_cached_ms": cached_ms, "wrapper_ms": wrapper_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": max(bound_ops, bound_bytes),
             "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
             "ops": ops, "bytes": nbytes,
         }
         r = rows[width]
-        print(f"  {width:8s} {r['shape']}: kernel {ms:.4f} ms (wrapper, weights quantized on "
-              f"each call, {wrapper_ms:.4f} ms)  bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
-              f"{ops:.3e} int8 ops, {nbytes / 1e6:.1f} MB)  twin {plain_ms:.4f} ms  library "
-              f"{library_ms:.4f} ms  -> {r['bound_ms'] / ms:.1%} of bound", flush=True)
+        print(f"  {width:8s} {r['shape']}: kernel {ms:.4f} ms (previous design "
+              f"{PREVIOUS_INT8_MS[width]:.4f}, from PERF.md; wrapper on "
+              f"the cached pack {cached_ms:.4f}, packing on each call {wrapper_ms:.4f})  bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}; {ops:.3e} int8 ops, {nbytes / 1e6:.1f} MB)  "
+              f"twin {plain_ms:.4f} ms  library {library_ms:.4f} ms  -> {r['bound_ms'] / ms:.1%} "
+              f"of bound", flush=True)
     return rows
 
 
@@ -836,13 +939,31 @@ def int8_entry_point(fc):
     launch counts over it and the int8 trunk's error with x in float32."""
     from optispeech_tpu_torch.cli import int8_ab
 
+    packs = {"kernel_weights": 0, "kernel_weights_int8": 0}
+    originals = {name: getattr(fc, name) for name in packs}
+
+    def counted(name):
+        def pack(*args):
+            packs[name] += 1
+            return originals[name](*args)
+        return pack
+
     fc.convnext_block_fused.launches = 0
     fc.convnext_block_fused_int8.launches = 0
-    res = int8_ab.main(["--batch", "32", "--t", "1792"])
+    try:  # count the A/B's packs: one per fused arm
+        for name in packs:
+            setattr(fc, name, counted(name))
+        res = int8_ab.main(["--batch", "32", "--t", "1792"])
+    finally:
+        for name, fn in originals.items():
+            setattr(fc, name, fn)
     launches = {"convnext_block_fused_int8": fc.convnext_block_fused_int8.launches,
                 "convnext_block_fused": fc.convnext_block_fused.launches}
     calls = {arm: res[arm]["calls"] for arm in ("fused_int8", "fused_bf16")}
-    print(f"  launches {launches} over {calls} trunk calls", flush=True)
+    print(f"  launches {launches} over {calls} trunk calls; packs {packs}; int8 over fused_bf16 "
+          f"{res['speedup']:.3f}x (device time)", flush=True)
+    assert packs == {"kernel_weights": 1, "kernel_weights_int8": 1}, (
+        f"expected one pack per fused arm, got {packs}")
     assert launches["convnext_block_fused_int8"] == int8_ab.N_BLOCKS * calls["fused_int8"], (
         "expected 8 int8 kernel launches per int8 trunk call")
     assert launches["convnext_block_fused"] == int8_ab.N_BLOCKS * calls["fused_bf16"], (
@@ -891,27 +1012,17 @@ def main() -> int:
     phase("2. build")
     t_build = time.perf_counter()
     built = _build.build_kernels()
+    fused = {"convnext_block": ("B1", fc.PADDED_CHANNELS, fc.kernel_layout),
+             "convnext_block_int8": ("B2", fc.INT8_CHANNELS, fc.kernel_layout_int8)}
     for name, info in built.items():
         print(f"  {name}: {info['path']} built in {info['seconds']:.1f} s")
-        if name == "convnext_block":
+        if name in fused:
             continue
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    {line.strip()}")
     print(f"  all kernels built in {time.perf_counter() - t_build:.1f} s (in parallel)")
-    layouts = {c: fc.kernel_layout(c) for c in (128, 256, 384)}
-    b1_ptxas = ptxas_summary(built["convnext_block"]["log"])
-    for entry in b1_ptxas:  # convnext_block_kernel<C, T>, mangled
-        c = next(c for c in layouts if f"ILi{c}E" in entry["function"])
-        dtype = "float32" if f"ILi{c}EfE" in entry["function"] else "bfloat16"
-        entry.update(channels=c, x_dtype=dtype, **layouts[c])
-        print(f"    B1 C={c} x {dtype}: {entry['registers']} registers, spills "
-              f"{entry['spill_store_bytes']} B stored / {entry['spill_load_bytes']} B loaded, "
-              f"shared memory {entry['smem_bytes']} B dynamic + {entry['static_smem_bytes']} B "
-              f"static, {entry['stages']} weight slots; wgmma serialized by ptxas "
-              f"{entry['wgmma_serialized']}", flush=True)
-    if not b1_ptxas and built["convnext_block"]["seconds"] > 0:
-        raise AssertionError("no ptxas report for the fused ConvNeXt-block kernel")
+    ptxas = {name: fused_ptxas(built[name], *spec) for name, spec in fused.items()}
 
     phase("3. kernel check (kernel against twin on the card)")
     max_abs_err = check_kernel(fc, device)
@@ -923,6 +1034,7 @@ def main() -> int:
     print(f"  OptiSpeech(ExperimentConfig(), en-g2p, fused decoder + trunk), seed 0: "
           f"{n_params} parameters", flush=True)
     launches = main_path(fc, mas, api)
+    dim192_launches, _ = dim192_model(fc)
 
     phase("5. cross-device (card kernel against CPU twin)")
     cross_device(api)
@@ -965,11 +1077,13 @@ def main() -> int:
         "source": "optispeech_tpu_torch/csrc/convnext_block.cu",
         "replaces": "optispeech_tpu/ops/pallas_convnext.py:224",
         "launches": launches, "launch_path": "phase 4, synthesis",
+        "launches_dim192_decode": dim192_launches,
         "max_abs_err": max_abs_err,
         "ms": trunk["ms"], "plain_ms": trunk["plain_ms"], "bound_ms": trunk["bound_ms"],
         "bound_by": trunk["bound_by"], "library_ms": trunk["library_ms"],
         "wrapper_ms": trunk["wrapper_ms"], "shape": trunk["shape"],
-        "other_shapes": [rows["decoder"], rows["trunk_bf16"]], "ptxas": b1_ptxas,
+        "other_shapes": [r for w, r in rows.items() if w != "trunk"],
+        "ptxas": ptxas["convnext_block"],
     }
     mas_kernel = {
         "name": "viterbi_decode", "route": "cuda",
@@ -1004,7 +1118,9 @@ def main() -> int:
         "ms": int8_trunk["ms"], "plain_ms": int8_trunk["plain_ms"],
         "bound_ms": int8_trunk["bound_ms"], "bound_by": int8_trunk["bound_by"],
         "library_ms": int8_trunk["library_ms"], "wrapper_ms": int8_trunk["wrapper_ms"],
+        "wrapper_cached_ms": int8_trunk["wrapper_cached_ms"],
         "shape": int8_trunk["shape"], "other_shapes": [int8_rows["decoder"]],
+        "ptxas": ptxas["convnext_block_int8"],
         "ab": {arm: ab[arm] for arm in ("xla_bf16", "fused_bf16", "fused_int8", "oracle_f32")},
         "ab_int8_rel_err_x_f32": ab_f32_err,
     }

@@ -74,13 +74,15 @@ def arms(p) -> dict:
     """The trunk of each arm, x -> x; the oracle last."""
     block = (p["dw"], p["dwb"], p["lnw"], p["lnb"])
     bf16 = (*block, p["w1"].bfloat16(), p["b1"], p["w2"].bfloat16(), p["b2"], p["gamma"])
-    packed = fc.kernel_weights(bf16[4], bf16[6])  # once, as the model keeps it
+    packed = fc.kernel_weights(bf16[4], bf16[6])  # once per arm, as the model keeps it
     f32 = (*block, p["w1"], p["b1"], p["w2"], p["b2"], p["gamma"])
+    packed_int8 = fc.kernel_weights_int8(p["w1"], p["w2"])  # the 8 blocks share their weights
     return {
         "xla_bf16": lambda x: trunk(lambda x: unfused_block(x, p, torch.bfloat16), x),
         "fused_bf16": lambda x: trunk(lambda x: fc.convnext_block_fused(x, *bf16, packed=packed),
                                       x),
-        "fused_int8": lambda x: trunk(lambda x: fc.convnext_block_fused_int8(x, *f32), x),
+        "fused_int8": lambda x: trunk(
+            lambda x: fc.convnext_block_fused_int8(x, *f32, packed=packed_int8), x),
         "oracle_f32": lambda x: trunk(lambda x: unfused_block(x, p, torch.float32), x),
     }
 

@@ -48,36 +48,55 @@
 //
 // Budgets at C = 384: shared memory h 48 KB + G 2 x 8 KB + 3 slots x 48 KB
 // = 208 KB, plus the barriers and 1 KB of alignment slack: one block per SM.
-// C = 256 runs 5 slots of 32 KB, C = 128 8 of 16 KB. Registers: 384 threads
-// at one block per SM get 168 a thread; setmaxnreg moves them to 40 for the
-// producer's warpgroup and 232 for the consumers, whose thread holds its
-// share of the 64 x C/2 float32 accumulator (96 registers at C = 384) and of
-// the 64 x 32 S tile (16).
+// The ring takes what the h tile leaves, up to 8 slots of C x 128 bytes:
+// 2 slots at C = 448 and 512, 3 at 384, 4 at 320, 5 at 256, 7 at 192 and 8
+// below. Registers: 384 threads at one block per SM get 168 a thread;
+// setmaxnreg moves them to 24 for the producer's warpgroup and 240 for the
+// consumers, whose thread holds its share of the 64 x C/2 float32
+// accumulator (96 registers at C = 384, 128 at 512) and of the 64 x 32 S
+// tile (16). Above C = 384 the prologue takes two frames at a time, not
+// four, which spilled more. With 40 / 232, C = 384 spilled 172 B (x f32)
+// and C = 512 with x bf16 124 B; with 24 / 240 they spill 0 and 60 B.
 // Not done (later work): a persistent grid that overlaps one tile's
 // epilogue and prologue with the next tile's products; a cluster of two
 // blocks multicasting each slot (halves the L2 traffic) was built and ran
 // slower than this single-block kernel.
 //
-// Shapes taken: C in {128, 256, 384} (a template argument), I a multiple of
-// 64, x in f32 or bf16, the packed weights in bf16, every other parameter
-// f32. The caller checks shapes and types.
+// Shapes taken: any C up to 512 and any I, x in f32 or bf16, the packed
+// weights in bf16, every other parameter f32. The kernel is instantiated
+// for C' = C rounded up to a multiple of 64 (the template argument); the
+// pack holds C' x I' weights, I' = I rounded up to a multiple of 64, with
+// zeros past C and I. Where C < C' (PADDED), the prologue reads x and the
+// parameters below C (16 bytes at a time where C is a multiple of 4, else
+// element by element) and writes zeros into h past C, the LayerNorm divides
+// by C and masks the lanes past it, and the epilogue stores the columns
+// below C (in pairs where C is even); b1 reads zero past I, so the padded
+// columns of S give gelu(0) = 0. Where C is not a multiple of 128 the
+// LayerNorm also masks lanes. The caller checks shapes and types.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
+using namespace hopper;
+
 constexpr int TM = 64;          // frames per block: one wgmma M
-constexpr int IC = 64;          // intermediate channels per chunk
+constexpr int IC = 64;          // intermediate channels per chunk: 64 bf16, one swizzle row
 constexpr int HALO = 3;         // k = 7 depthwise conv
 constexpr int CONSUMERS = 2;    // computing warpgroups
 constexpr int NTHREADS = (CONSUMERS + 1) * 128;
 constexpr int CONSUMER_WARPS = CONSUMERS * 4;
 constexpr int FRAMES_PER_WARP = TM / CONSUMER_WARPS;
-constexpr int ROW = 128;        // bytes in one swizzle row: 64 bf16 of K
 constexpr int MAX_STAGES = 8;
-constexpr int SMEM_LIMIT = 232448;  // 227 KB a block
+
+// Frames the prologue takes at a time: two above C = 384, where four would
+// hold too many registers (ptxas spilled more than at C = 384).
+template <int C, bool PADDED>
+constexpr int PROLOGUE_FRAMES = C > 384 ? 2 : 4;
 
 // Shared-memory layout, in bytes from a 1024-byte-aligned base. Every
 // operand tile is K-major with 128-byte rows, in blocks of 64 K-columns.
@@ -94,165 +113,14 @@ struct Layout {
   static constexpr int STAGES = FIT < MAX_STAGES ? FIT : MAX_STAGES;
   static constexpr int BAR_OFF = RING_OFF + STAGES * SLOT;
   static constexpr int BYTES = BAR_OFF + BAR_BYTES + 1024;  // + slack to align the base
+  static_assert(C % 64 == 0 && C >= 64 && C <= 512, "C is a multiple of 64 up to 512");
   static_assert(STAGES >= 2, "the ring needs two slots");
   static_assert(BYTES <= SMEM_LIMIT, "a block may use at most 227 KB of shared memory");
   static_assert(SLOT % 1024 == 0 && H_BYTES % 1024 == 0, "swizzle atoms are 1024 bytes");
   static_assert(TM == IC, "h and the W1 image share the 64-row K-block stride");
 };
 
-// 128-byte swizzle, as wgmma's descriptor layout 1 reads it: the 16-byte
-// chunk within a 128-byte row is XORed with the row's index mod 8.
-__device__ __forceinline__ uint32_t swizzle(uint32_t off) { return off ^ (((off >> 7) & 7) << 4); }
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// wgmma shared-memory descriptor: K-major, 128-byte swizzle, 8-row groups
-// 1024 bytes apart (SBO); LBO is unused in this layout.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Wait until the barrier's phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// One contiguous global -> shared copy, completing on `bar`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void consumers_sync() {  // the 256 consumer threads only
-  asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS * 128) : "memory");
-}
-
-// Generic-proxy writes to shared memory, made visible to wgmma's reads.
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// D (64 x N, f32 registers) += A (64 x 16) @ B (16 x N), both bf16 from
-// shared memory through descriptors, K-major; scale_d = 0 overwrites D.
-// D's layout: d[i] holds row 16 * warp + lane / 4 + 8 * ((i / 2) % 2),
-// column 8 * (i / 4) + 2 * (lane % 4) + i % 2.
-__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96], uint64_t a, uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %98, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
-      "}, %96, %97, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-
-template <int N>
-__device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
-  if constexpr (N == 32) wgmma_m64n32k16(d, a, b, scale_d);
-  else if constexpr (N == 64) wgmma_m64n64k16(d, a, b, scale_d);
-  else if constexpr (N == 128) wgmma_m64n128k16(d, a, b, scale_d);
-  else wgmma_m64n192k16(d, a, b, scale_d);
-}
+__device__ __forceinline__ void consumers_sync() { named_sync<CONSUMERS * 128>(); }
 
 // Four consecutive channels of x as float32: one 16-byte load (8 for bf16).
 __device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
@@ -261,6 +129,25 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
   const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
   return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// row[c .. c + 3] as float32. PADDED: one load where rows of c_len elements
+// are 16-byte aligned (8-byte for bf16: c_len a multiple of 4) and all four
+// lie below c_len, else one element at a time, zero at or past c_len.
+template <bool PADDED, typename T>
+__device__ __forceinline__ float4 load4_row(const T* row, int c, int c_len) {
+  if constexpr (!PADDED) {
+    return load4(row + c);
+  } else {
+    if (c_len % 4 == 0 && c + 4 <= c_len) return load4(row + c);
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = c + e < c_len ? to_f32(row[c + e]) : 0.f;
+    return make_float4(v[0], v[1], v[2], v[3]);
+  }
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -285,34 +172,41 @@ __device__ __forceinline__ float gelu(float u) {
   return 0.5f * u * (1.f + erf);
 }
 
-// Depthwise conv + LayerNorm of frames r0 .. r0 + 3 by one warp, written as
-// bf16 into the swizzled h tile; frames at or past T are zeros. Lane l holds
-// channels 4 (l + 32 j) .. 4 (l + 32 j) + 3 and slides a 10-frame window
-// over them.
-template <int C, typename T>
+// Depthwise conv + LayerNorm of frames r0 .. r0 + F - 1 by one warp, written
+// as bf16 into the swizzled h tile of C' = C columns; frames at or past T
+// are zeros. Lane l holds channels 4 (l + 32 j) .. 4 (l + 32 j) + 3 and
+// slides an (F + 6)-frame window over them. Channels at or past the real
+// width c_len (past C' where C' is not a multiple of 128, past c_len where
+// PADDED) hold zeros and are left out of the variance; h is zero there.
+template <int C, bool PADDED, typename T>
 __device__ __forceinline__ void dwconv_layernorm(const T* __restrict__ xb, unsigned char* h_s,
                                                  const float* __restrict__ dw,
                                                  const float* __restrict__ dwb,
                                                  const float* __restrict__ lnw,
                                                  const float* __restrict__ lnb, int t0, int t_len,
-                                                 int r0, int lane) {
-  constexpr int GROUPS = C / 128;  // float4 groups per lane
-  constexpr int F = 4;
+                                                 int c_len, int r0, int lane) {
+  constexpr int GROUPS = (C + 127) / 128;  // float4 groups per lane
+  constexpr bool RAGGED = PADDED || C % 128 != 0;
+  constexpr int F = PROLOGUE_FRAMES<C, PADDED>;
+  const int cl = PADDED ? c_len : C;  // the row stride and the real width
   float v[F][4 * GROUPS];
 #pragma unroll
   for (int j = 0; j < GROUPS; ++j) {
     const int c = 4 * (lane + 32 * j);
+    const bool on = !RAGGED || c < cl;
     float4 win[F + 2 * HALO];
 #pragma unroll
     for (int u = 0; u < F + 2 * HALO; ++u) {
       const int t = t0 + r0 + u - HALO;
-      win[u] = (t >= 0 && t < t_len) ? load4(xb + static_cast<size_t>(t) * C + c)
-                                     : make_float4(0.f, 0.f, 0.f, 0.f);
+      win[u] = (on && t >= 0 && t < t_len)
+                   ? load4_row<PADDED>(xb + static_cast<size_t>(t) * cl, c, cl)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
     }
     float4 wk[7];
 #pragma unroll
-    for (int k = 0; k < 7; ++k) wk[k] = load4(dw + k * C + c);
-    const float4 bias = load4(dwb + c);
+    for (int k = 0; k < 7; ++k)
+      wk[k] = on ? load4_row<PADDED>(dw + k * cl, c, cl) : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 bias = on ? load4_row<PADDED>(dwb, c, cl) : make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
     for (int f = 0; f < F; ++f) {
       float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -336,18 +230,20 @@ __device__ __forceinline__ void dwconv_layernorm(const T* __restrict__ xb, unsig
     float sum = 0.f;
 #pragma unroll
     for (int i = 0; i < 4 * GROUPS; ++i) sum += v[f][i];
-    const float mean = warp_sum(sum) * (1.f / C);
+    const float inv_c = PADDED ? 1.f / c_len : 1.f / C;
+    const float mean = warp_sum(sum) * inv_c;
     float sq = 0.f;
 #pragma unroll
     for (int i = 0; i < 4 * GROUPS; ++i) {
       const float d = v[f][i] - mean;
-      sq += d * d;
+      if (!RAGGED || 4 * (lane + 32 * (i / 4)) + i % 4 < cl) sq += d * d;
     }
-    const float rstd = rsqrtf(warp_sum(sq) * (1.f / C) + 1e-6f);
+    const float rstd = rsqrtf(warp_sum(sq) * inv_c + 1e-6f);
 #pragma unroll
     for (int j = 0; j < GROUPS; ++j) {
       const int c = 4 * (lane + 32 * j);
-      const float4 g = load4(lnw + c), bb = load4(lnb + c);
+      if (C % 128 != 0 && c >= C) continue;  // past the tile; zeros from lnw = lnb = 0 below C
+      const float4 g = load4_row<PADDED>(lnw, c, cl), bb = load4_row<PADDED>(lnb, c, cl);
       float hv[4] = {(v[f][4 * j] - mean) * rstd * g.x + bb.x,
                      (v[f][4 * j + 1] - mean) * rstd * g.y + bb.y,
                      (v[f][4 * j + 2] - mean) * rstd * g.z + bb.z,
@@ -364,22 +260,23 @@ __device__ __forceinline__ void dwconv_layernorm(const T* __restrict__ xb, unsig
   }
 }
 
-template <int C, typename T>
+template <int C, bool PADDED, typename T>
 __global__ void __launch_bounds__(NTHREADS, 1)
 convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out, const float* __restrict__ dw,
                       const float* __restrict__ dwb, const float* __restrict__ lnw,
                       const float* __restrict__ lnb, const __nv_bfloat16* __restrict__ packed,
                       const float* __restrict__ b1, const float* __restrict__ b2,
-                      const float* __restrict__ gamma, int t_len, int inter) {
+                      const float* __restrict__ gamma, int t_len, int c_len, int inter) {
   using L = Layout<C>;
   constexpr int S = L::STAGES;
   constexpr int N2 = C / 2;  // output columns per consumer warpgroup
+  const int cl = PADDED ? c_len : C;  // the real width: x's row stride
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
   uint64_t* empty = full + MAX_STAGES;
-  const int n_chunks = inter / IC;
+  const int n_chunks = (inter + IC - 1) / IC;  // the pack's I' / 64
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -394,9 +291,9 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out, const float*
 
   if (wg == CONSUMERS) {
     // -- producer: one thread streams W1_0, W2_0, W1_1, ... through the ring;
-    // its warpgroup gives up registers to the consumers (128 x 40 + 256 x 232
+    // its warpgroup gives up registers to the consumers (128 x 24 + 256 x 240
     // = 384 x 168, the block's allocation)
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
     if (threadIdx.x == CONSUMERS * 128) {
       const unsigned char* src = reinterpret_cast<const unsigned char*>(packed);
       for (int q = 0; q < 2 * n_chunks; ++q) {
@@ -411,7 +308,7 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out, const float*
   }
 
   // -- consumers -------------------------------------------------------------
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
   const int tid = threadIdx.x;  // 0..255
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -419,12 +316,14 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out, const float*
   const int wq = warp % 4;       // warp within the warpgroup: rows 16 wq .. 16 wq + 15
   const int item = blockIdx.y;
   const int t0 = blockIdx.x * TM;
-  const T* xb = x + static_cast<size_t>(item) * t_len * C;
-  T* ob = out + static_cast<size_t>(item) * t_len * C;
+  const T* xb = x + static_cast<size_t>(item) * t_len * cl;
+  T* ob = out + static_cast<size_t>(item) * t_len * cl;
 
 #pragma unroll
-  for (int r0 = warp * FRAMES_PER_WARP; r0 < (warp + 1) * FRAMES_PER_WARP; r0 += 4)
-    dwconv_layernorm<C, T>(xb, smem + L::H_OFF, dw, dwb, lnw, lnb, t0, t_len, r0, lane);
+  for (int r0 = warp * FRAMES_PER_WARP; r0 < (warp + 1) * FRAMES_PER_WARP;
+       r0 += PROLOGUE_FRAMES<C, PADDED>)
+    dwconv_layernorm<C, PADDED, T>(xb, smem + L::H_OFF, dw, dwb, lnw, lnb, t0, t_len, c_len, r0,
+                                   lane);
   // G_{-1} = 0: the first pass's second product adds nothing, so every pass
   // of the loop issues, commits and waits alike (branches between the wgmma
   // groups make ptxas serialize them, its warning C7514)
@@ -454,7 +353,7 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out, const float*
 #pragma unroll
     for (int k = 0; k < C / 16; ++k) {
       const uint32_t koff = (k / 4) * (TM * ROW) + (k % 4) * 32;
-      wgmma<32>(s_reg, smem_desc(h_addr + koff), smem_desc(b1_base + koff), k > 0);
+      wgmma_bf16<32>(s_reg, smem_desc(h_addr + koff), smem_desc(b1_base + koff), k > 0);
     }
     wgmma_commit();
     // acc_w += G_{j-1} @ W2_{j-1}[:, w N2 : (w + 1) N2], left running. For
@@ -464,13 +363,13 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out, const float*
     const uint32_t b2_base = (j > 0 ? ring + sb * L::SLOT : h_addr) + w * N2 * ROW;
 #pragma unroll
     for (int k = 0; k < IC / 16; ++k)
-      wgmma<N2>(acc, smem_desc(a2_base + k * 32), smem_desc(b2_base + k * 32), 1);
+      wgmma_bf16<N2>(acc, smem_desc(a2_base + k * 32), smem_desc(b2_base + k * 32), 1);
     wgmma_commit();
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {  // b1 for this thread's columns, while the products run
       const int n = j * IC + w * 32 + 8 * jj + 2 * (lane % 4);
-      bias[2 * jj] = b1[n];
-      bias[2 * jj + 1] = b1[n + 1];
+      bias[2 * jj] = n < inter ? b1[n] : 0.f;
+      bias[2 * jj + 1] = n + 1 < inter ? b1[n + 1] : 0.f;
     }
     wgmma_wait<1>();  // S_w is in; the second product may still run
     if (lane == 0) mbar_arrive(&empty[sa]);
@@ -501,7 +400,7 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out, const float*
     const uint32_t b2_base = ring + sb * L::SLOT + w * N2 * ROW;
 #pragma unroll
     for (int k = 0; k < IC / 16; ++k)
-      wgmma<N2>(acc, smem_desc(a2_base + k * 32), smem_desc(b2_base + k * 32), 1);
+      wgmma_bf16<N2>(acc, smem_desc(a2_base + k * 32), smem_desc(b2_base + k * 32), 1);
     wgmma_commit();
     wgmma_wait<0>();
   }
@@ -514,7 +413,18 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out, const float*
 #pragma unroll
     for (int jj = 0; jj < N2 / 8; ++jj) {
       const int c = w * N2 + 8 * jj + 2 * (lane % 4);
-      const size_t idx = static_cast<size_t>(t) * C + c;
+      const size_t idx = static_cast<size_t>(t) * cl + c;
+      if (PADDED && (c_len % 2 != 0 || c >= c_len)) {  // element by element, below c_len
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (c + e >= c_len) continue;
+          const float hv = acc[4 * jj + 2 * half + e] + b2[c + e];
+          const float o = to_f32(xb[idx + e]) + gamma[c + e] * hv;
+          if constexpr (sizeof(T) == 4) ob[idx + e] = o;
+          else ob[idx + e] = __float2bfloat16_rn(o);
+        }
+        continue;
+      }
       const float2 g = *reinterpret_cast<const float2*>(gamma + c);
       const float2 bb = *reinterpret_cast<const float2*>(b2 + c);
       const float h0 = acc[4 * jj + 2 * half] + bb.x;
@@ -531,12 +441,13 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out, const float*
   }
 }
 
-template <int C, typename T>
+template <int C, bool PADDED, typename T>
 cudaError_t launch(const void* x, void* out, const void* dw, const void* dwb, const void* lnw,
                    const void* lnb, const void* packed, const void* b1, const void* b2,
-                   const void* gamma, int batch, int t_len, int inter, cudaStream_t stream) {
+                   const void* gamma, int batch, int t_len, int c_len, int inter,
+                   cudaStream_t stream) {
   using L = Layout<C>;
-  auto kernel = convnext_block_kernel<C, T>;
+  auto kernel = convnext_block_kernel<C, PADDED, T>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
   if (err != cudaSuccess) return err;
@@ -546,63 +457,76 @@ cudaError_t launch(const void* x, void* out, const void* dw, const void* dwb, co
       static_cast<const float*>(dwb), static_cast<const float*>(lnw),
       static_cast<const float*>(lnb), static_cast<const __nv_bfloat16*>(packed),
       static_cast<const float*>(b1), static_cast<const float*>(b2),
-      static_cast<const float*>(gamma), t_len, inter);
+      static_cast<const float*>(gamma), t_len, c_len, inter);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(int channels, const void* x, void* out, const void* dw, const void* dwb,
-                     const void* lnw, const void* lnb, const void* packed, const void* b1,
-                     const void* b2, const void* gamma, int batch, int t_len, int inter,
-                     cudaStream_t stream) {
+// Calls f(Width<C>()) for the instantiated width C (a multiple of 64 up to
+// 512), or returns cudaErrorInvalidValue for any other.
+template <typename F>
+cudaError_t with_channels(int channels, F&& f) {
   switch (channels) {
-    case 128:
-      return launch<128, T>(x, out, dw, dwb, lnw, lnb, packed, b1, b2, gamma, batch, t_len, inter, stream);
-    case 256:
-      return launch<256, T>(x, out, dw, dwb, lnw, lnb, packed, b1, b2, gamma, batch, t_len, inter, stream);
-    case 384:
-      return launch<384, T>(x, out, dw, dwb, lnw, lnb, packed, b1, b2, gamma, batch, t_len, inter, stream);
-    default:
-      return cudaErrorInvalidValue;
+    case 64: return f(Width<64>());
+    case 128: return f(Width<128>());
+    case 192: return f(Width<192>());
+    case 256: return f(Width<256>());
+    case 320: return f(Width<320>());
+    case 384: return f(Width<384>());
+    case 448: return f(Width<448>());
+    case 512: return f(Width<512>());
+    default: return cudaErrorInvalidValue;
   }
 }
+
+int padded_channels(int channels) { return (channels + 63) / 64 * 64; }
 
 }  // namespace
 
 // Returns the launch's cudaError_t (0 on success). x_bf16 selects the type of
 // x and out: 0 for float32, 1 for bfloat16. `packed` holds the weights as
-// ops/fused_convnext.py::kernel_weights lays them out.
+// ops/fused_convnext.py::kernel_weights lays them out, padded to C' and I'.
 extern "C" int convnext_block_fused_launch(const void* x, void* out, const void* dw,
                                            const void* dwb, const void* lnw, const void* lnb,
                                            const void* packed, const void* b1, const void* b2,
                                            const void* gamma, int batch, int t_len, int channels,
                                            int inter, int x_bf16, void* stream) {
-  if (batch < 1 || batch > 65535 || t_len < 1 || inter < IC || inter % IC != 0)
+  if (batch < 1 || batch > 65535 || t_len < 1 || channels < 1 || inter < 1)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_bf16)
-    return dispatch<__nv_bfloat16>(channels, x, out, dw, dwb, lnw, lnb, packed, b1, b2, gamma,
-                                   batch, t_len, inter, s);
-  return dispatch<float>(channels, x, out, dw, dwb, lnw, lnb, packed, b1, b2, gamma, batch, t_len,
-                         inter, s);
+  const bool padded = channels != padded_channels(channels);
+  return with_channels(padded_channels(channels), [&](auto c) {
+    constexpr int C = decltype(c)::value;
+    if (padded) {
+      if (x_bf16)
+        return launch<C, true, __nv_bfloat16>(x, out, dw, dwb, lnw, lnb, packed, b1, b2, gamma,
+                                              batch, t_len, channels, inter, s);
+      return launch<C, true, float>(x, out, dw, dwb, lnw, lnb, packed, b1, b2, gamma, batch,
+                                    t_len, channels, inter, s);
+    }
+    if (x_bf16)
+      return launch<C, false, __nv_bfloat16>(x, out, dw, dwb, lnw, lnb, packed, b1, b2, gamma,
+                                             batch, t_len, channels, inter, s);
+    return launch<C, false, float>(x, out, dw, dwb, lnw, lnb, packed, b1, b2, gamma, batch, t_len,
+                                   channels, inter, s);
+  });
 }
 
-// Dynamic shared memory a block takes at `channels` (0 if not taken), and
-// the number of weight slots in its ring.
+// Dynamic shared memory a block takes at `channels` (rounded up to a
+// multiple of 64; 0 if not taken), and the number of weight slots in its ring.
 extern "C" int convnext_block_smem_bytes(int channels) {
-  switch (channels) {
-    case 128: return Layout<128>::BYTES;
-    case 256: return Layout<256>::BYTES;
-    case 384: return Layout<384>::BYTES;
-    default: return 0;
-  }
+  int bytes = 0;
+  with_channels(padded_channels(channels), [&](auto c) {
+    bytes = Layout<decltype(c)::value>::BYTES;
+    return cudaSuccess;
+  });
+  return bytes;
 }
 
 extern "C" int convnext_block_stages(int channels) {
-  switch (channels) {
-    case 128: return Layout<128>::STAGES;
-    case 256: return Layout<256>::STAGES;
-    case 384: return Layout<384>::STAGES;
-    default: return 0;
-  }
+  int stages = 0;
+  with_channels(padded_channels(channels), [&](auto c) {
+    stages = Layout<decltype(c)::value>::STAGES;
+    return cudaSuccess;
+  });
+  return stages;
 }

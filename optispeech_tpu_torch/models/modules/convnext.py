@@ -1,12 +1,14 @@
 """1-D ConvNeXt backbone: the encoder, the decoder and the WaveNeXt trunk.
 
 Port of `optispeech_tpu/models/modules/convnext.py`. (B, T, C) in and out.
-In eval mode with `fused`, each block runs as one call of
-`ops.fused_convnext.convnext_block_fused`: the CUDA kernel on the card, its
-twin on the CPU. In training mode the blocks run unfused, with drop path
-drawn from the caller's `torch.Generator`, as in JAX (fused only when
-deterministic). Submodule names follow the reference's torch keys
-(`convnext.{i}.dwconv.weight`, `final_layer_norm.weight`).
+In eval mode with `fused`, each block whose shape JAX would tile
+(`ops.fused_convnext.kernel_takes`, its `pick_tile` rule) runs as one call
+of `ops.fused_convnext.convnext_block_fused`: the CUDA kernel on the card,
+its twin on the CPU; any other block runs unfused. In training
+mode the blocks run unfused, with drop path drawn from the caller's
+`torch.Generator`, as in JAX (fused only when deterministic). Submodule
+names follow the reference's torch keys (`convnext.{i}.dwconv.weight`,
+`final_layer_norm.weight`).
 """
 
 from typing import Optional
@@ -15,7 +17,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ...ops.fused_convnext import convnext_block_fused, kernel_weights
+from ...ops.fused_convnext import convnext_block_fused, kernel_takes, kernel_weights
 from .core import conv_btc
 
 
@@ -49,7 +51,8 @@ class ConvNeXtBlock(nn.Module):
         self._fused_cache = None
 
     def forward(self, x, fused: bool = False, generator: Optional[torch.Generator] = None):
-        if fused and self.gamma is not None:
+        if fused and self.gamma is not None and kernel_takes(
+                x.shape[1], self.pwconv1.in_features, self.pwconv1.out_features):
             *params, packed = self.fused_params()
             return convnext_block_fused(x, *params, packed=packed)
         h = conv_btc(self.dwconv, x)

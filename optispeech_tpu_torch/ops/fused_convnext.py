@@ -12,12 +12,17 @@ w1 (C, I), w2 (I, C). Both blocks compute the GELU as the JAX kernels do,
   bf16 operands with f32 accumulation. The kernel takes its weights packed
   once (`kernel_weights`) and is launched by `convnext_block_launch`; the
   wrapper packs per call unless given the pack. Its twin is
-  `convnext_block_reference`.
+  `convnext_block_reference`. It takes any C up to `MAX_CHANNELS` and any
+  I: the pack pads both to multiples of 64 with zeros. `kernel_takes(T, C,
+  I)` is JAX's `pick_tile(T, C, I) is not None`: a model runs the block
+  fused where it holds and unfused where it does not, as JAX does.
 - `convnext_block_fused_int8` (B2, `csrc/convnext_block_int8.cu`): both
   products int8 x int8 -> int32, with dynamic per-frame activation scales
   (`quantize_rows_int8`) and per-output-channel weight scales
-  (`quantize_weight_int8`, applied in the wrapper). Its twin is
-  `convnext_block_int8_reference`.
+  (`quantize_weight_int8`). The kernel takes the codes packed once with
+  their scales (`kernel_weights_int8`) and is launched by
+  `convnext_block_int8_launch`; the wrapper packs per call unless given the
+  pack. Its twin is `convnext_block_int8_reference`.
 - Each wrapper launches its kernel for a CUDA tensor or raises, and runs its
   twin for a CPU tensor; `<wrapper>.launches` counts kernel launches.
 - The kernels are built with nvcc into `build/` beside the package at first
@@ -33,8 +38,10 @@ import torch
 from . import _build
 
 HALO = 3  # k=7 depthwise conv, symmetric
-CHANNELS = (128, 256, 384)  # the kernel's template instantiations
-I_CHUNK = 64  # the kernel walks I in chunks of this width
+MAX_CHANNELS = 512  # B1 takes C up to this width (its accumulator and shared memory)
+CHANNELS = range(1, MAX_CHANNELS + 1)
+I_CHUNK = 64  # B1 walks I in chunks of this width
+PADDED_CHANNELS = tuple(range(I_CHUNK, MAX_CHANNELS + 1, I_CHUNK))  # B1's instantiations
 INV_SQRT2 = 1.0 / math.sqrt(2.0)
 
 
@@ -98,8 +105,9 @@ def convnext_block_fused(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma, *, packed=
     Args:
         x: (B, T, C) float32 or bfloat16, any T >= 1.
         dw: (7, C) depthwise kernel; dwb, lnw, lnb, b2, gamma: (C,).
-        w1: (C, I); b1: (I,); w2: (I, C). On the card w1 and w2 must be
-            bfloat16 and every other parameter float32, all contiguous.
+        w1: (C, I); b1: (I,); w2: (I, C). On the card C is at most
+            MAX_CHANNELS, w1 and w2 are bfloat16 and every other parameter
+            float32, all contiguous.
         packed: `kernel_weights(w1, w2)`, if the caller keeps it; otherwise
             the weights are packed on each call on the card. Ignored on the CPU.
 
@@ -117,41 +125,84 @@ def convnext_block_fused(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma, *, packed=
 
 convnext_block_fused.launches = 0
 
+
+# JAX's tile rule (optispeech_tpu/ops/pallas_convnext.py::pick_tile): the
+# frame tiles it tries, and the VMEM its estimate may reach
+JAX_TILES = (896, 768, 640, 512, 448, 384, 256, 128, 64)
+JAX_VMEM_BYTES = 12 * 1024 * 1024
+
+
+def kernel_takes(frames: int, channels: int, inter: int) -> bool:
+    """Whether a model runs a block of T = `frames`, C = `channels` and
+    I = `inter` fused: JAX's `pick_tile(T, C, I) is not None`, its rule in
+    `optispeech_tpu/models/modules/convnext.py:50-52`. Decided by the shape
+    alone, the same on every device. B1 itself takes any T and any I, and C
+    up to MAX_CHANNELS; its wrapper raises on a card for a wider block."""
+    return any(frames % tile == 0 and frames >= tile
+               and tile * (3 * channels + inter) * 4 + 4 * channels * inter <= JAX_VMEM_BYTES
+               for tile in JAX_TILES)
+
+
+def padded_width(n: int) -> int:
+    """n rounded up to a multiple of I_CHUNK: the widths B1's pack holds."""
+    return -(-n // I_CHUNK) * I_CHUNK
+
+
 SWIZZLE_GROUPS = 8  # 16-byte groups in one 128-byte row of a kernel operand
+
+
+def _swizzled_images(w1, w2, chunk):
+    """(I / chunk, 2, C, chunk) images of w1 (C, I) and w2 (I, C), `chunk`
+    elements being one 128-byte row: for each chunk j of I, the W1 image
+    (row chunk * kb + n holds w1[chunk kb : chunk kb + chunk, chunk j + n],
+    the depth C in blocks of `chunk`) and then the W2 image (row c holds
+    w2[chunk j : chunk j + chunk, c]), K-major, as the kernels' wgmma
+    descriptors read them. In row r the 16-byte group g is stored at
+    g ^ (r % 8) (the 128-byte swizzle)."""
+    c, inter = w1.shape
+    n = inter // chunk
+    img1 = w1.reshape(c // chunk, chunk, n, chunk).permute(2, 0, 3, 1).reshape(n, c, chunk)
+    img2 = w2.reshape(n, chunk, c).permute(0, 2, 1)
+    groups = torch.stack([img1, img2], dim=1).reshape(n, 2, c, SWIZZLE_GROUPS, -1)
+    rows = torch.arange(c, device=w1.device)[:, None] % SWIZZLE_GROUPS
+    logical = torch.arange(SWIZZLE_GROUPS, device=w1.device)[None, :] ^ rows  # (C, 8)
+    index = logical[None, None, :, :, None].expand_as(groups)
+    return groups.gather(3, index).reshape(n, 2, c, chunk).contiguous()
 
 
 def kernel_weights(w1, w2):
     """B1's weights as the kernel copies them into shared memory:
-    (I / 64, 2, C, 64) bfloat16, for each 64-wide chunk j of I the image of
-    the W1 chunk w1[:, 64j : 64j + 64] and then that of the W2 chunk
-    w2[64j : 64j + 64, :].
+    (I' / 64, 2, C', 64) bfloat16, where C' and I' are C and I rounded up to
+    multiples of 64 (`padded_width`) and the added rows and columns of w1 and
+    w2 are zeros; for each 64-wide chunk j of I' the image of the W1 chunk
+    w1[:, 64j : 64j + 64] and then that of the W2 chunk w2[64j : 64j + 64, :].
 
     Each image is C rows of 64 bf16 (128 bytes), K-major, as the kernel's
     wgmma descriptors read it: row 64 kb + n of the W1 image holds
     w1[64 kb : 64 kb + 64, 64 j + n] (the depth C in blocks of 64), row c of
     the W2 image holds w2[64 j : 64 j + 64, c]. In row r the 16-byte group g
     is stored at g ^ (r % 8) (the 128-byte swizzle). One bulk copy moves a
-    whole image into a slot of the kernel's ring."""
+    whole image into a slot of the kernel's ring. Zero weights past C and I
+    add nothing: the kernel's h is zero past C and gelu(0 + 0) = 0 past I."""
     c, inter = w1.shape
-    n = inter // I_CHUNK
-    w1b, w2b = w1.detach().to(torch.bfloat16), w2.detach().to(torch.bfloat16)
-    img1 = w1b.reshape(c // I_CHUNK, I_CHUNK, n, I_CHUNK).permute(2, 0, 3, 1).reshape(n, c, I_CHUNK)
-    img2 = w2b.reshape(n, I_CHUNK, c).permute(0, 2, 1)
-    groups = torch.stack([img1, img2], dim=1).reshape(n, 2, c, SWIZZLE_GROUPS, -1)
-    rows = torch.arange(c, device=w1.device)[:, None] % SWIZZLE_GROUPS
-    logical = torch.arange(SWIZZLE_GROUPS, device=w1.device)[None, :] ^ rows  # (C, 8)
-    index = logical[None, None, :, :, None].expand_as(groups)
-    return groups.gather(3, index).reshape(n, 2, c, I_CHUNK).contiguous()
+    pc, pi = padded_width(c) - c, padded_width(inter) - inter
+    w1 = torch.nn.functional.pad(w1.detach().to(torch.bfloat16), (0, pi, 0, pc))
+    w2 = torch.nn.functional.pad(w2.detach().to(torch.bfloat16), (0, pc, 0, pi))
+    return _swizzled_images(w1, w2, I_CHUNK)
+
+
+def _check_tensor(name, tensor, shape, dtype, x):
+    if not torch.is_tensor(tensor) or tuple(tensor.shape) != shape or tensor.dtype != dtype:
+        got = (tuple(tensor.shape), tensor.dtype) if torch.is_tensor(tensor) else type(tensor)
+        raise ValueError(f"{name} must be {shape} {dtype}, got {got}")
+    if tensor.device != x.device or not tensor.is_contiguous():
+        raise ValueError(f"{name} must be contiguous and on x's device")
 
 
 def _check_packed(x, packed, b1):
-    c, inter = x.shape[-1], b1.shape[0]
-    shape = (inter // I_CHUNK, 2, c, I_CHUNK)
-    if packed.dtype != torch.bfloat16 or tuple(packed.shape) != shape or inter % I_CHUNK:
-        raise ValueError(f"packed must be kernel_weights' {shape} bfloat16, got "
-                         f"{tuple(packed.shape)} {packed.dtype}")
-    if packed.device != x.device or not packed.is_contiguous():
-        raise ValueError("packed must be contiguous and on x's device")
+    c, inter = padded_width(x.shape[-1]), padded_width(b1.shape[0])
+    _check_tensor("packed (kernel_weights)", packed, (inter // I_CHUNK, 2, c, I_CHUNK),
+                  torch.bfloat16, x)
 
 
 def convnext_block_launch(x, dw, dwb, lnw, lnb, packed, b1, b2, gamma):
@@ -176,27 +227,28 @@ def convnext_block_launch(x, dw, dwb, lnw, lnb, packed, b1, b2, gamma):
 
 
 def kernel_layout(channels: int) -> dict:
-    """B1's dynamic shared memory per block and weight slots at `channels`,
-    as the built kernel reports them."""
+    """B1's dynamic shared memory per block and weight slots at `channels`
+    (padded to a multiple of 64), as the built kernel reports them."""
     lib = _library()
     return {"smem_bytes": lib.convnext_block_smem_bytes(channels),
             "stages": lib.convnext_block_stages(channels)}
 
 
 def _check_args(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma, weight_dtype=torch.bfloat16,
-                max_inter=None):
+                channels=CHANNELS, inter_step=1):
+    """Raise unless the kernel takes these arguments: C in `channels`, I a
+    positive multiple of `inter_step`, and the dtypes, shapes and layout of
+    the wrapper's contract, all on x's device."""
     if x.dim() != 3 or x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"x must be (B, T, C) float32 or bfloat16, got {tuple(x.shape)} {x.dtype}")
     b, t, c = x.shape
     inter = w1.shape[-1]
     if b < 1 or t < 1:
         raise ValueError(f"x must not be empty, got {tuple(x.shape)}")
-    if c not in CHANNELS:
-        raise ValueError(f"the kernel takes C in {CHANNELS}, got {c}")
-    if inter % I_CHUNK:
-        raise ValueError(f"the kernel takes I a multiple of {I_CHUNK}, got {inter}")
-    if max_inter is not None and inter > max_inter:
-        raise ValueError(f"the kernel takes I up to {max_inter}, got {inter}")
+    if c not in channels:
+        raise ValueError(f"the kernel takes C in {channels}, got {c}")
+    if inter < inter_step or inter % inter_step:
+        raise ValueError(f"the kernel takes I a positive multiple of {inter_step}, got {inter}")
     expect = {
         "dw": (dw, (7, c), torch.float32), "dwb": (dwb, (c,), torch.float32),
         "lnw": (lnw, (c,), torch.float32), "lnb": (lnb, (c,), torch.float32),
@@ -216,7 +268,8 @@ def _check_args(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma, weight_dtype=torch.
 
 # -- int8 block (B2) -----------------------------------------------------------
 
-INT8_MAX_INTER = 1408  # the kernel keeps a (32, I) float32 tile in shared memory
+INT8_CHANNELS = (128, 256, 384)  # B2's template instantiations
+INT8_I_CHUNK = 128  # B2 walks I in chunks of this width (one 128-byte row of codes)
 INV_127 = 1.0 / 127.0  # a Python float: float32 where it meets a float32 tensor
 
 
@@ -284,14 +337,17 @@ def convnext_block_int8_reference(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma):
     return (xf + gamma * h2).to(x.dtype)
 
 
-def convnext_block_fused_int8(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma):
+def convnext_block_fused_int8(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma, *, packed=None):
     """Apply one int8 ConvNeXt block; the kernel on the card, the twin on the CPU.
 
     Args as `convnext_block_fused`, but w1 (C, I) and w2 (I, C) in float32, as
-    the JAX function takes them: they are quantized here, per output channel,
-    on every call (as the JAX wrapper does in its graph). On the card every
-    parameter is float32 and contiguous, and I a multiple of 64 up to
-    INT8_MAX_INTER.
+    the JAX function takes them; they are quantized per output channel.
+    packed: `kernel_weights_int8(w1, w2)`, if the caller keeps it (the codes
+        and scales of the same weights); otherwise the weights are quantized
+        and packed on each call on the card, as the JAX wrapper quantizes
+        them in its graph. Ignored on the CPU.
+    On the card every parameter is float32 and contiguous, C is one of
+    INT8_CHANNELS and I a multiple of 64.
 
     Returns (B, T, C) in x's dtype.
     """
@@ -300,39 +356,57 @@ def convnext_block_fused_int8(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma):
     if x.device.type != "cuda":
         raise ValueError(f"convnext_block_fused_int8: no kernel for device {x.device}")
     _check_args(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma, weight_dtype=torch.float32,
-                max_inter=INT8_MAX_INTER)
-    w1t, s1, w2t, s2 = kernel_weights_int8(w1, w2)
-    return convnext_block_int8_launch(x, dw, dwb, lnw, lnb, w1t, s1, b1, w2t, s2, b2, gamma)
+                channels=INT8_CHANNELS, inter_step=I_CHUNK)
+    if packed is None:
+        packed = kernel_weights_int8(w1, w2)
+    return convnext_block_int8_launch(x, dw, dwb, lnw, lnb, packed, b1, b2, gamma)
 
 
 convnext_block_fused_int8.launches = 0
 
 
 def kernel_weights_int8(w1, w2):
-    """The int8 kernel's weights: the codes of w1 (C, I) and w2 (I, C),
-    transposed to (I, C) and (C, I) so that each product's depth is
-    contiguous, and their per-output-channel scales (I,) and (C,)."""
-    w1q, s1 = quantize_weight_int8(w1)
-    w2q, s2 = quantize_weight_int8(w2)
-    return w1q.t().contiguous(), s1, w2q.t().contiguous(), s2
+    """B2's weights as the kernel reads them: (images, s1, s2).
+
+    The codes of w1 (C, I) and w2 (I, C) (`quantize_weight_int8`, per output
+    channel) with I padded with zero codes to a multiple of 128, as
+    `_swizzled_images` lays them out for 128 int8 to a row:
+    (ceil(I / 128), 2, C, 128) int8, the W1 chunk then the W2 chunk of each
+    128-wide chunk of I. s1 (I,) and s2 (C,) are their float32 scales."""
+    w1q, s1 = quantize_weight_int8(w1.detach())
+    w2q, s2 = quantize_weight_int8(w2.detach())
+    c, inter = w1q.shape
+    pad = -inter % INT8_I_CHUNK
+    w1q = torch.cat([w1q, w1q.new_zeros(c, pad)], dim=1)
+    w2q = torch.cat([w2q, w2q.new_zeros(pad, c)], dim=0)
+    return _swizzled_images(w1q, w2q, INT8_I_CHUNK), s1.contiguous(), s2.contiguous()
 
 
-def convnext_block_int8_launch(x, dw, dwb, lnw, lnb, w1t, s1, b1, w2t, s2, b2, gamma):
-    """Launch the int8 kernel on weights from `kernel_weights_int8`; the
-    caller has checked x and the float32 parameters (the wrapper does)."""
+def convnext_block_int8_launch(x, dw, dwb, lnw, lnb, packed, b1, b2, gamma):
+    """Launch B2 on weights from `kernel_weights_int8`; the caller has
+    checked x and the float32 parameters (the wrapper does)."""
     b, t, c = x.shape
-    inter = w1t.shape[0]
-    if w1t.dtype != torch.int8 or w2t.dtype != torch.int8 or tuple(w1t.shape) != (inter, c) \
-            or tuple(w2t.shape) != (c, inter) or not (w1t.is_contiguous() and w2t.is_contiguous()):
-        raise ValueError("w1t and w2t must be contiguous int8 (I, C) and (C, I)")
+    inter = b1.shape[0]
+    if not isinstance(packed, (tuple, list)) or len(packed) != 3:
+        raise ValueError("packed must be kernel_weights_int8's (images, s1, s2)")
+    images, s1, s2 = packed
+    if inter < I_CHUNK or inter % I_CHUNK:
+        raise ValueError(f"packed: I must be a multiple of {I_CHUNK}, got {inter}")
+    n = -(-inter // INT8_I_CHUNK)
+    _check_tensor("packed images (kernel_weights_int8)", images, (n, 2, c, INT8_I_CHUNK),
+                  torch.int8, x)
+    _check_tensor("packed s1", s1, (inter,), torch.float32, x)
+    _check_tensor("packed s2", s2, (c,), torch.float32, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"convnext_block_int8_launch: no kernel for device {x.device}")
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = _library("convnext_block_int8").convnext_block_int8_launch(
             x.data_ptr(), out.data_ptr(), dw.data_ptr(), dwb.data_ptr(), lnw.data_ptr(),
-            lnb.data_ptr(), w1t.data_ptr(), s1.data_ptr(), b1.data_ptr(), w2t.data_ptr(),
-            s2.data_ptr(), b2.data_ptr(), gamma.data_ptr(), b, t, c, inter,
-            int(x.dtype == torch.bfloat16), stream,
+            lnb.data_ptr(), images.data_ptr(), s1.data_ptr(), b1.data_ptr(), s2.data_ptr(),
+            b2.data_ptr(), gamma.data_ptr(), b, t, c, inter, int(x.dtype == torch.bfloat16),
+            stream,
         )
     if err != 0:
         raise RuntimeError(f"convnext_block_fused_int8: kernel launch failed with cudaError {err}")
@@ -340,11 +414,19 @@ def convnext_block_int8_launch(x, dw, dwb, lnw, lnb, w1t, s1, b1, w2t, s2, b2, g
     return out
 
 
+def kernel_layout_int8(channels: int) -> dict:
+    """B2's dynamic shared memory per block and weight slots at `channels`,
+    as the built kernel reports them."""
+    lib = _library("convnext_block_int8")
+    return {"smem_bytes": lib.convnext_block_int8_smem_bytes(channels),
+            "stages": lib.convnext_block_int8_stages(channels)}
+
+
 # -- load ---------------------------------------------------------------------
 
 _ENTRY_POINTS = {  # library -> (C function, number of pointer and int arguments)
     "convnext_block": ("convnext_block_fused_launch", 10, 5),
-    "convnext_block_int8": ("convnext_block_int8_launch", 13, 5),
+    "convnext_block_int8": ("convnext_block_int8_launch", 12, 5),
 }
 
 

@@ -1,7 +1,9 @@
 """Fused ConvNeXt block of the port: its plain twin and its GELU against the
 JAX Pallas kernel (interpret mode on the CPU), the fused backbones of both
-packages, the kernel's weight pack, the wrapper's argument checks, and,
-where a card exists, the CUDA kernel against its twin.
+packages, the shape rule that picks the fused or the unfused block, a fused
+model at a width outside the flagship's against JAX's, the kernel's weight
+pack, the wrapper's argument checks, and, where a card exists, the CUDA
+kernel against its twin.
 
 The JAX side is imported inside the tests that use it, so that on a machine
 with a card and without JAX the kernel test still collects:
@@ -93,23 +95,30 @@ def _swizzled(e):
     return e ^ (((e >> 6) & 7) << 3)
 
 
-@pytest.mark.parametrize("c,inter", [(128, 256), (256, 1024), (384, 1152)])
+@pytest.mark.parametrize("c,inter", [(128, 256), (256, 1024), (384, 1152), (96, 200),
+                                     (97, 291)])
 def test_kernel_weights_invert_to_w1_and_w2(c, inter):
     """Every weight read back from the pack by the layout the kernel's
-    descriptors name, element by element, equals its bf16 value."""
+    descriptors name, element by element, equals its bf16 value; where C or
+    I is no multiple of 64, the pack is padded to the next with zeros."""
     rng = np.random.default_rng(c)
     w1 = torch.from_numpy(rng.normal(size=(c, inter)).astype(np.float32))
     w2 = torch.from_numpy(rng.normal(size=(inter, c)).astype(np.float32))
     packed = fc.kernel_weights(w1, w2)
+    pc, pi = -(-c // 64) * 64, -(-inter // 64) * 64
     assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
-    assert tuple(packed.shape) == (inter // 64, 2, c, 64)
-    flat = packed.float().numpy().reshape(inter // 64, 2, c * 64)
-    k, i = np.meshgrid(np.arange(c), np.arange(inter), indexing="ij")  # w1[k, i]
+    assert tuple(packed.shape) == (pi // 64, 2, pc, 64)
+    flat = packed.float().numpy().reshape(pi // 64, 2, pc * 64)
+    w1p = np.zeros((pc, pi), np.float32)
+    w1p[:c, :inter] = w1.bfloat16().float().numpy()
+    w2p = np.zeros((pi, pc), np.float32)
+    w2p[:inter, :c] = w2.bfloat16().float().numpy()
+    k, i = np.meshgrid(np.arange(pc), np.arange(pi), indexing="ij")  # w1[k, i]
     got1 = flat[i // 64, 0, _swizzled(((k // 64) * 64 + i % 64) * 64 + k % 64)]
-    np.testing.assert_array_equal(got1, w1.bfloat16().float().numpy())
-    i, cc = np.meshgrid(np.arange(inter), np.arange(c), indexing="ij")  # w2[i, c]
+    np.testing.assert_array_equal(got1, w1p)
+    i, cc = np.meshgrid(np.arange(pi), np.arange(pc), indexing="ij")  # w2[i, c]
     got2 = flat[i // 64, 1, _swizzled(cc * 64 + i % 64)]
-    np.testing.assert_array_equal(got2, w2.bfloat16().float().numpy())
+    np.testing.assert_array_equal(got2, w2p)
 
 
 def test_fused_params_repack_after_an_in_place_write():
@@ -173,6 +182,90 @@ def test_fused_backbone_matches_jax_fused_backbone(decoder_pair, monkeypatch, ma
     np.testing.assert_allclose(got.numpy(), unfused.numpy(), atol=ATOL)
 
 
+@pytest.mark.parametrize("c", [32, 96, 160, 192, 256, 384, 500, 512, 576, 1024, 2048, 4096])
+@pytest.mark.parametrize("inter", [64, 1000, 1152, 4096])
+def test_kernel_takes_by_shape(c, inter):
+    """The rule that sends a block to the fused path is JAX's:
+    `pick_tile(T, C, I) is not None`, at every T, tiled or not; it reads
+    the shape only, so the CPU makes the card's choice."""
+    from optispeech_tpu.ops.pallas_convnext import pick_tile
+
+    for t in (1, 63, 64, 65, 128, 256, 1000, 1792, 2048):
+        assert fc.kernel_takes(t, c, inter) is (pick_tile(t, c, inter) is not None), (t, c, inter)
+
+
+@pytest.mark.parametrize("c,inter,t,fused", [(192, 768, 128, True), (96, 1000, 128, True),
+                                             (192, 768, 70, False), (1024, 4096, 128, False)])
+def test_block_takes_the_kernel_or_the_unfused_path_by_shape(monkeypatch, c, inter, t, fused):
+    """`ConvNeXtBlock(fused=True)` calls the kernel's wrapper only where
+    JAX's rule tiles (T, C, I) (a T that no tile divides, or a block whose
+    smallest tile overflows JAX's VMEM estimate, does not), and otherwise
+    returns the unfused block's output."""
+    from optispeech_tpu_torch.models.modules import convnext
+
+    torch.manual_seed(c + inter)
+    block = convnext.ConvNeXtBlock(c, inter, layer_scale_init_value=0.25).eval()
+    calls = []
+    wrapper = convnext.convnext_block_fused
+    monkeypatch.setattr(convnext, "convnext_block_fused",
+                        lambda *a, **kw: calls.append(1) or wrapper(*a, **kw))
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(2, t, c)).astype(np.float32))
+    with torch.no_grad():
+        got, unfused = block(x, fused=True), block(x)
+    assert len(calls) == int(fused)
+    if fused:
+        np.testing.assert_allclose(got.numpy(), unfused.numpy(), atol=ATOL)
+    else:
+        assert torch.equal(got, unfused)
+
+
+def test_fused_model_at_dim_192_matches_jax_fused_model(monkeypatch):
+    """A fused model at `generator.dim: 192` (decoder 192/1024, trunk
+    384/1152, 2 blocks each) synthesises as JAX's fused model does, whose
+    blocks run the Pallas kernel in interpret mode: durations equal, wav
+    within 1e-4, and every block of both took the fused path."""
+    import dataclasses
+
+    import optispeech_tpu.ops.pallas_convnext as pc
+    from torch_parity import full_width_config, params_np, to_torch_config
+
+    from optispeech_tpu.models.optispeech import OptiSpeech as JaxOptiSpeech
+    from optispeech_tpu_torch.models.modules import convnext
+    from optispeech_tpu_torch.models.optispeech import OptiSpeech, with_fused_blocks
+
+    cfg = full_width_config(layers=2)
+    g = cfg.generator
+    g = dataclasses.replace(g, dim=192, decoder=dataclasses.replace(g.decoder, fused_pallas=True),
+                            vocoder=dataclasses.replace(g.vocoder, fused_pallas=True))
+    cfg = dataclasses.replace(cfg, generator=g)
+    orig, calls = pc.convnext_block_fused, []
+
+    def interp(*args, **kw):
+        calls.append(args[0].shape[-1])
+        return orig(*args, interpret=True, **kw)
+
+    monkeypatch.setattr(pc, "convnext_block_fused", interp)
+    monkeypatch.setattr(pc, "fused_supported", lambda: True)
+    japi = JaxOptiSpeech(cfg, seed=0)
+    text = "The birch canoe slid on the smooth planks."
+    jout = japi.synthesise(japi.prepare_input(text, d_factor=2.0))
+    assert sorted(set(calls)) == [192, 384] and len(calls) == 4  # 2 decoder + 2 trunk blocks
+    tcfg = with_fused_blocks(to_torch_config(cfg))
+    tapi = OptiSpeech.load_from_jax_params(tcfg, params_np(japi.params), device="cpu")
+    port_calls, wrapper = [], convnext.convnext_block_fused
+    monkeypatch.setattr(convnext, "convnext_block_fused",
+                        lambda x, *a, **kw: port_calls.append(x.shape[-1]) or wrapper(x, *a, **kw))
+    launches = fc.convnext_block_fused.launches
+    tout = tapi.synthesise(tapi.prepare_input(text, d_factor=2.0))
+    assert fc.convnext_block_fused.launches == launches  # CPU tensors: the twin
+    assert sorted(port_calls) == sorted(calls)  # the shape rule gave every block the kernel
+    np.testing.assert_array_equal(tout.durations, jout.durations)
+    np.testing.assert_array_equal(tout.wav_lengths, jout.wav_lengths)
+    print(f"wav max|port - jax| {np.abs(tout.wav - jout.wav).max():.3e}, "
+          f"max|wav| {np.abs(jout.wav).max():.3e}")
+    np.testing.assert_allclose(tout.wav, jout.wav, atol=1e-4)
+
+
 @pytest.mark.parametrize("case", ["channels", "inter", "dtype", "weight_dtype", "shape",
                                   "contiguous", "empty", "packed_shape", "packed_dtype",
                                   "packed_contiguous"])
@@ -193,11 +286,11 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
         with pytest.raises(ValueError, match="packed"):
             fc.convnext_block_launch(x, *p[:4], packed, p[5], p[7], p[8])
         return
-    if case == "channels":
-        x, p = _block_args(np.random.default_rng(0), 1, 9, 192, inter)
+    if case == "channels":  # wider than MAX_CHANNELS
+        x, p = _block_args(np.random.default_rng(0), 1, 9, 576, inter)
         p[4], p[6] = p[4].bfloat16(), p[6].bfloat16()
-    elif case == "inter":
-        x, p = _block_args(np.random.default_rng(0), 1, 9, c, 1000)
+    elif case == "inter":  # no intermediate channels
+        x, p = _block_args(np.random.default_rng(0), 1, 9, c, 0)
         p[4], p[6] = p[4].bfloat16(), p[6].bfloat16()
     elif case == "dtype":
         x = x.double()
@@ -252,5 +345,27 @@ def test_kernel_matches_twin_on_cuda_at_tile_edges(cuda, dtype, c, inter, b, t):
     assert fc.convnext_block_fused.launches == launches + 1
     ref = fc.convnext_block_reference(x, *p)
     assert got.dtype == dtype and got.shape == x.shape
+    rtol = BF16_RTOL if dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(got.float(), ref.float(), atol=ATOL, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,inter", [(192, 1024), (512, 2048), (96, 384), (97, 291),
+                                     (500, 1000)])
+@pytest.mark.parametrize("t", [1, 65, 1000])
+def test_kernel_matches_twin_on_cuda_at_new_widths(cuda, dtype, c, inter, t):
+    """C = 192 (a width whose LayerNorm masks lanes), C = 512 (the widest,
+    two weight slots), and C = 96, 97 and 500, which the kernel pads to a
+    multiple of 64 (97 with an odd I: rows that are not 16-byte aligned),
+    within chip_smoke.py phase 3's tolerance."""
+    x, p = _block_args(np.random.default_rng(t + c), 2, t, c, inter, dtype)
+    x = x.to(cuda)
+    p = [q.to(cuda) for q in p]
+    p[4], p[6] = p[4].bfloat16(), p[6].bfloat16()
+    launches = fc.convnext_block_fused.launches
+    got = fc.convnext_block_fused(x, *p)
+    torch.cuda.synchronize()
+    assert fc.convnext_block_fused.launches == launches + 1
+    ref = fc.convnext_block_reference(x, *p)
     rtol = BF16_RTOL if dtype == torch.bfloat16 else 0.0
     torch.testing.assert_close(got.float(), ref.float(), atol=ATOL, rtol=rtol)

@@ -1,8 +1,9 @@
 """The int8 fused ConvNeXt block of the port (B2) and its A/B entry point:
 the quantizers bit for bit against JAX's, the plain twin against JAX's
-oracle and its Pallas kernel in interpret mode, the wrapper's argument
-checks, `cli/int8_ab.py` on the CPU, and, where a card exists, the CUDA
-kernel against its twin.
+oracle and its Pallas kernel in interpret mode, the kernel's weight pack
+read back to JAX's codes and scales, the wrapper's and the launch's
+argument checks, `cli/int8_ab.py` on the CPU (one pack per arm), and, where
+a card exists, the CUDA kernel bit-equal to its twin.
 
 The JAX side is imported inside the tests that use it, so that on a machine
 with a card and without JAX the kernel test still collects:
@@ -168,14 +169,14 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
     c, inter = 384, 1152
     x, p = _block_args(np.random.default_rng(0), 1, 9, c, inter)
     check = lambda x, p: fc._check_args(  # noqa: E731  (the wrapper's check for the card)
-        x, *p, weight_dtype=torch.float32, max_inter=fc.INT8_MAX_INTER)
+        x, *p, weight_dtype=torch.float32, channels=fc.INT8_CHANNELS, inter_step=fc.I_CHUNK)
     check(x, p)  # the valid set passes
     if case == "channels":
         x, p = _block_args(np.random.default_rng(0), 1, 9, 192, inter)
     elif case == "inter":
         x, p = _block_args(np.random.default_rng(0), 1, 9, c, 1000)
-    elif case == "too_wide":  # the (32, I) float32 tile would not fit in shared memory
-        x, p = _block_args(np.random.default_rng(0), 1, 9, 128, fc.INT8_MAX_INTER + 64)
+    elif case == "too_wide":  # wider than B2's widest instantiation (B1 takes it)
+        x, p = _block_args(np.random.default_rng(0), 1, 9, 512, 2048)
     elif case == "dtype":
         x = x.double()
     elif case == "weight_dtype":  # the wrapper quantizes float32 weights itself
@@ -188,6 +189,93 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
         x = x[:, :0]
     with pytest.raises(ValueError):
         check(x, p)
+
+
+def _swizzled(e):
+    """Byte offset -> its place in a 128-byte-swizzled image: the 16-byte
+    group within each 128-byte row XORed with the row's index mod 8."""
+    return e ^ (((e >> 7) & 7) << 4)
+
+
+@pytest.mark.parametrize("c,inter", [(128, 256), (128, 320), (256, 1024), (384, 1152)])
+def test_kernel_weights_int8_invert_to_jax_codes_and_scales(c, inter):
+    """Every code read back from the pack by the layout B2's s8 wgmma
+    descriptors name (K-major, 128 codes to a 128-byte row, W1 in 128-code
+    K-blocks of 128 rows), byte by byte, equals JAX's code; the padding of
+    I to a multiple of 128 (I = 320) holds zeros; the scales are JAX's."""
+    from optispeech_tpu.ops.pallas_convnext import quantize_weight_int8
+
+    rng = np.random.default_rng(c + inter)
+    w1 = (rng.normal(size=(c, inter)) * 0.05).astype(np.float32)
+    w2 = (rng.normal(size=(inter, c)) * 0.05).astype(np.float32)
+    images, s1, s2 = fc.kernel_weights_int8(torch.from_numpy(w1), torch.from_numpy(w2))
+    n = -(-inter // 128)
+    assert images.dtype == torch.int8 and images.is_contiguous()
+    assert tuple(images.shape) == (n, 2, c, 128)
+    (jq1, js1), (jq2, js2) = (quantize_weight_int8(*_jax(torch.from_numpy(w))) for w in (w1, w2))
+    np.testing.assert_array_equal(s1.numpy(), np.asarray(js1))
+    np.testing.assert_array_equal(s2.numpy(), np.asarray(js2))
+    flat = images.numpy().reshape(n, 2, c * 128)
+    k, i = np.meshgrid(np.arange(c), np.arange(inter), indexing="ij")  # w1q[k, i]
+    got1 = flat[i // 128, 0, _swizzled((k // 128) * 128 * 128 + (i % 128) * 128 + k % 128)]
+    np.testing.assert_array_equal(got1, np.asarray(jq1))
+    i, cc = np.meshgrid(np.arange(inter), np.arange(c), indexing="ij")  # w2q[i, c]
+    got2 = flat[i // 128, 1, _swizzled(cc * 128 + i % 128)]
+    np.testing.assert_array_equal(got2, np.asarray(jq2))
+    if inter % 128:  # the padded half of the last chunk
+        k, i = np.meshgrid(np.arange(c), np.arange(inter, n * 128), indexing="ij")
+        assert not flat[n - 1, 0, _swizzled((k // 128) * 16384 + (i % 128) * 128 + k % 128)].any()
+        i, cc = np.meshgrid(np.arange(inter, n * 128), np.arange(c), indexing="ij")
+        assert not flat[n - 1, 1, _swizzled(cc * 128 + i % 128)].any()
+
+
+@pytest.mark.parametrize("case", ["not_a_triple", "images_shape", "images_dtype",
+                                  "images_contiguous", "s1_shape", "s2_dtype", "inter"])
+def test_launch_rejects_a_malformed_pack(case):
+    """The launch checks the pack before it touches a card."""
+    c, inter = 256, 1024
+    x, p = _block_args(np.random.default_rng(0), 1, 9, c, inter)
+    images, s1, s2 = fc.kernel_weights_int8(p[4], p[6])
+    if case == "not_a_triple":
+        packed = (images, s1)
+    elif case == "images_shape":
+        packed = (images[:-1], s1, s2)
+    elif case == "images_dtype":
+        packed = (images.view(torch.uint8), s1, s2)
+    elif case == "images_contiguous":
+        packed = (images.transpose(2, 3).contiguous().transpose(2, 3), s1, s2)
+    elif case == "s1_shape":
+        packed = (images, s1[:-64], s2)
+    elif case == "s2_dtype":
+        packed = (images, s1, s2.double())
+    else:  # b1 not a multiple of 64 wide
+        packed, p[5] = (images, s1, s2), p[5][:-8]
+    with pytest.raises(ValueError, match="packed"):
+        fc.convnext_block_int8_launch(x, *p[:4], packed, p[5], p[7], p[8])
+
+
+def test_int8_ab_packs_once_per_arm(monkeypatch):
+    """The A/B's fused arms pack their weights once, however many trunk
+    calls they run: the 8 blocks share their parameters, as in JAX's jit."""
+    from optispeech_tpu_torch.cli import int8_ab
+
+    packs = {"kernel_weights": 0, "kernel_weights_int8": 0}
+
+    def counted(name, fn):
+        def call(*args):
+            packs[name] += 1
+            return fn(*args)
+        return call
+
+    for name in packs:
+        monkeypatch.setattr(fc, name, counted(name, getattr(fc, name)))
+    arms = int8_ab.arms(int8_ab.make_params(torch.Generator().manual_seed(0)))
+    x = torch.randn(1, 8, int8_ab.C, generator=torch.Generator().manual_seed(1)).bfloat16()
+    with torch.no_grad():
+        for _ in range(3):
+            arms["fused_bf16"](x)
+            arms["fused_int8"](x)
+    assert packs == {"kernel_weights": 1, "kernel_weights_int8": 1}
 
 
 def test_cpu_tensor_runs_the_twin_and_launches_nothing():
@@ -262,7 +350,7 @@ def test_int8_ab_main_on_the_cpu(capsys):
 @pytest.mark.parametrize("t", [1000, 5])
 def test_kernel_matches_twin_on_cuda(cuda, dtype, c, inter, t):
     """On the card the kernel repeats the twin's every rounding: bit-equal
-    wherever the card's expf is PyTorch's; held to the frame criterion."""
+    wherever the card's expf is PyTorch's, and held to the frame criterion."""
     x, p = _block_args(np.random.default_rng(t + c), 2, t, c, inter, dtype)
     x, p = x.to(cuda), [q.to(cuda) for q in p]
     launches = fc.convnext_block_fused_int8.launches
@@ -273,3 +361,22 @@ def test_kernel_matches_twin_on_cuda(cuda, dtype, c, inter, t):
     assert got.dtype == dtype and got.shape == x.shape
     _assert_frames_agree(got.float().cpu().numpy(), ref.float().cpu().numpy(),
                          TOL + (BF16_RTOL if dtype == torch.bfloat16 else 0.0))
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,inter", [(128, 512), (256, 1024), (384, 1152)])
+@pytest.mark.parametrize("t", [1, 63, 65, 127, 129])
+def test_kernel_bit_equal_to_twin_on_cuda_at_tile_edges(cuda, dtype, c, inter, t):
+    """B = 1, T on either side of the 64-frame tile, every width, on a pack
+    made once (as the A/B keeps it): bit-equal to the twin."""
+    x, p = _block_args(np.random.default_rng(t + c), 1, t, c, inter, dtype)
+    x, p = x.to(cuda), [q.to(cuda) for q in p]
+    packed = fc.kernel_weights_int8(p[4], p[6])
+    launches = fc.convnext_block_fused_int8.launches
+    got = fc.convnext_block_fused_int8(x, *p, packed=packed)
+    torch.cuda.synchronize()
+    assert fc.convnext_block_fused_int8.launches == launches + 1
+    ref = fc.convnext_block_int8_reference(x, *p)
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got, ref)
