@@ -5,20 +5,25 @@
 
 Phases, each of which fails the run on any error:
   1. card: name and power limit, torch and CUDA versions, TF32 off;
-  2. build: nvcc builds the kernels from csrc/ into build/; for each
+  2. build: nvcc builds the kernels from csrc/ (and the MAS chain probe,
+     scripts/mas_chain.cu) into build/, each build's own seconds; for each
      instantiation of the two fused ConvNeXt-block kernels (B1 and B2), its
      registers, spills, shared memory, weight slots and whether ptxas
-     serialized its wgmma (ptxas's log and the kernel's own layout);
+     serialized its wgmma (ptxas's log and the kernel's own layout), and
+     ptxas's registers and spills for the other kernels;
   3. kernel check: the fused ConvNeXt-block kernel against its plain twin at
      both model widths and at C = 128 / I = 512, B = 32, T = 1792 / 1000
      (ragged) / 65 (one frame past a tile) / 5 (shorter than the halo) / 1, x
      in float32 and bfloat16, and at the other widths it takes (C = 64, 192,
      320, 448, 512, and C = 96, 97 and 500, which it pads to a multiple of
-     64) at T = 1792 / 65 / 1; then its time (on weights packed once, and
-     through the wrapper that packs them on every call) beside its bound,
-     the twin's time and the unfused PyTorch block's (`library_ms`, a
-     yardstick only), x in float32 at both widths and in bfloat16 at the
-     trunk, and x in float32 and bfloat16 at C = 448 and 512;
+     64) at T = 1792 / 65 / 1, and B1's wide path (C > 512) at C = 576 /
+     I = 1152 and 768 / 3072 (T = 1792 / 65 / 1) and at the widest block
+     JAX's rule tiles at T = 64, I = 64 (C = 12272); then its time (on
+     weights packed once, and through the wrapper that packs them on every
+     call) beside its bound, the twin's time and the unfused PyTorch
+     block's (`library_ms`, a yardstick only), x in float32 at both widths
+     and in bfloat16 at the trunk, x in float32 and bfloat16 at C = 448 and
+     512, and x in float32 at the three wide-path widths;
   4. main path at full width: the flagship ConvNeXt + WaveNeXt model (random
      weights, seed 0, en-g2p text front end, fused decoder and trunk) runs
      prepare_input -> synthesise on an English sentence, then
@@ -27,13 +32,19 @@ Phases, each of which fails the run on any error:
      Then the same model at `generator.dim: 192` (decoder 192/1024) runs
      synthesise_on_device on the card and on the CPU (the twin), batch 2 at
      256 frames: equal durations, wav within WAV_ATOL, and how many of its
-     blocks took the kernel by the shape rule (`kernel_takes`);
+     blocks took the kernel by the shape rule (`kernel_takes`); then the
+     same at `generator.dim: 576` (2 blocks a stack, decoder 576/1024),
+     which must fuse every block, its decoder's on the wide path;
   5. cross-device: the same weights on the card and on the CPU (where the
      block runs its twin), batch 2 at 256 frames: equal durations, close wav;
   6. MAS kernel check: the wavefront MAS kernel against its plain twin at
      B=128, T_feats=768, T_text=192 (lengths from a seed), (2, 43, 23) and a
      one-token item: durations exactly equal, bin loss and its gradient
-     close; then its time beside its bound and the twin's;
+     close; then its time (launched on inputs made once; through the
+     wrapper with its bin loss; at (2, 43, 23)) beside its bound, its chain
+     floor (the longest item's frames x the cycles of the forward's and the
+     backtrace's dependent steps, timed by scripts/mas_chain.cu, at the
+     card's maximum SM clock) and the twin's;
   7. training at full width: the flagship config's GAN train step (random
      weights, seed 0, D from the start) on a batch of 128 at 192 tokens and
      768 frames with host-sampled segments; 1 warm-up and 3 timed steps; the
@@ -45,13 +56,15 @@ Phases, each of which fails the run on any error:
      its plain twin at phase 6's timing shape and lengths, (2, 43, 12),
      (3, 40, 10) and a one-token item: durations exactly equal and equal to
      the wavefront kernel's, the per-token bin-loss sums and the bin loss
-     close; then its time beside its bound and the twin's;
+     close; then its time (as phase 6's, at (2, 43, 12)) beside its bound,
+     its chain floor and the twin's;
  10. the trainer at full width: `cli/train.py::run` on the flagship config
      (pretraining_steps=0, batch 128, periodicity metrics) over synthetic
      utterances of 96-192 tokens and 384-768 frames, 4 steps with one
      validation and one checkpoint, then a fresh trainer that restores step
-     4 and takes one more step; the MAS kernels must launch once per step
-     and once per val batch. The times come from the run's own log
+     4 and takes one more step, in a temporary directory outside the
+     checkout that is deleted after; the MAS kernels must launch once per
+     step and once per val batch. The times come from the run's own log
      (`perf/steps_per_sec`, `perf/val_*`) and from saving and restoring the
      trained state once more through the checkpoint manager;
  11. validation cross-device: the validation step with no dropout on the
@@ -77,7 +90,7 @@ Phases, each of which fails the run on any error:
      oracle is set by the bfloat16 residual stream (the updates a block adds
      below half a bfloat16 step are lost), so the int8 trunk is also run
      with x in float32 and held under 0.02 of max|oracle| there.
-The kernels build in parallel (one nvcc per source, four sources).
+The kernels build in parallel (one nvcc per source, five sources and the probe).
 Prints the kernels' JSON line and the card line, and as its last line
 {"ok": true, "device": {...}}. Without a card, or without the repo beside
 it, it exits non-zero and prints no result.
@@ -125,9 +138,15 @@ CHECK_WIDTHS = {**WIDTHS, "narrow": (128, 512)}  # phase 3 also checks C = 128
 # C = 97 with an odd I (rows that are not 16-byte aligned) and C = 500
 NEW_WIDTHS = {"c64": (64, 256), "c192": (192, 1024), "c320": (320, 1280), "c448": (448, 1792),
               "c512": (512, 2048), "c96": (96, 384), "c97": (97, 291), "c500": (500, 1000)}
-# phase 3 times these beside the model widths: the two widest, whose
-# prologue takes two frames at a time
+# phase 3: widths above 512, which B1's wide path (csrc/convnext_block_wide.cu)
+# takes, at T = 1792 / 65 / 1, and the small-I extreme, the widest block that
+# JAX's rule tiles at T = 64 with I = 64 (C = 12272), at T = 64
+WIDE_WIDTHS = {"c576": (576, 1152), "c768": (768, 3072)}
+WIDEST_I64 = (12272, 64)
+# phase 3 times these beside the model widths: the two widest of the narrow
+# kernel, whose prologue takes two frames at a time, and the wide path's
 TIMED_WIDTHS = {"c448": NEW_WIDTHS["c448"], "c512": NEW_WIDTHS["c512"]}
+DIM_WIDE = 576  # phase 4: a model at this generator.dim, its decoder at 576/1024
 # B2's times in its previous (mma.sync) design, same card type (PERF.md, kernel
 # table): printed beside this run's times, and kept out of the kernels line
 PREVIOUS_INT8_MS = {"trunk": 1.5017, "decoder": 1.1428}
@@ -188,10 +207,12 @@ def library_block(x, dw_conv, lnw, lnb, w1_t, b1, w2_t, b2, gamma):
 
 
 def check_kernel(fc, device):
+    assert fc.kernel_takes(64, *WIDEST_I64) and not fc.kernel_takes(64, WIDEST_I64[0] + 1, 64)
     gen = torch.Generator().manual_seed(0)
-    worst = 0.0
+    worst = {"narrow": 0.0, "wide": 0.0}  # largest |kernel - twin| by path
     cases = [(w, ci, (1792, 1000, 65, 5, 1)) for w, ci in CHECK_WIDTHS.items()]
-    cases += [(w, ci, (1792, 65, 1)) for w, ci in NEW_WIDTHS.items()]
+    cases += [(w, ci, (1792, 65, 1)) for w, ci in {**NEW_WIDTHS, **WIDE_WIDTHS}.items()]
+    cases.append(("c12272", WIDEST_I64, (64,)))
     for width, (c, inter), ts in cases:
         for t in ts:
             for dtype in (torch.float32, torch.bfloat16):
@@ -209,22 +230,27 @@ def check_kernel(fc, device):
                       f"(atol {ATOL}, rtol {rtol:.4f}) {'ok' if ok else 'FAIL'}", flush=True)
                 if not ok:
                     raise AssertionError(f"kernel disagrees with its twin at {width} T={t} {dtype}")
-                worst = max(worst, max_diff)
+                path = "wide" if c > fc.MAX_CHANNELS else "narrow"
+                worst[path] = max(worst[path], max_diff)
     return worst
 
 
 def time_kernel(fc, device):
     """Kernel, wrapper, twin and unfused-library times at the main path's
     shapes: x float32 at both widths, and the trunk with x bfloat16 (the
-    A/B's fused_bf16 arm)."""
+    A/B's fused_bf16 arm); then the narrow kernel's two widest and the wide
+    path's three widths (B = 32, T = 1792, or T = 64 at C = 12272)."""
     gen = torch.Generator().manual_seed(1)
-    b, t = 32, BENCH["n_frames"]
+    b = 32
     rows = {}
     cases = [(w, ci, torch.float32) for w, ci in WIDTHS.items()]
     cases.append(("trunk_bf16", WIDTHS["trunk"], torch.bfloat16))
     cases += [(f"{w}{suffix}", ci, dtype) for w, ci in TIMED_WIDTHS.items()
               for suffix, dtype in (("", torch.float32), ("_bf16", torch.bfloat16))]
+    cases += [(w, ci, torch.float32) for w, ci in WIDE_WIDTHS.items()]
+    cases.append(("c12272", WIDEST_I64, torch.float32))
     for width, (c, inter), dtype in cases:
+        t = 64 if width == "c12272" else BENCH["n_frames"]
         x, p = block_inputs(gen, b, t, c, inter, dtype, device)
         dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma = p
         packed = fc.kernel_weights(w1, w2)
@@ -247,7 +273,8 @@ def time_kernel(fc, device):
             "flop": flops, "bytes": nbytes,
         }
         r = rows[width]
-        print(f"  {width:10s} {r['shape']}: kernel {ms:.4f} ms (wrapper, weights packed on each "
+        r["path"] = "wide" if c > fc.MAX_CHANNELS else "narrow"
+        print(f"  {width:10s} {r['shape']} ({r['path']}): kernel {ms:.4f} ms (wrapper, weights packed on each "
               f"call, {wrapper_ms:.4f} ms)  bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
               f"{flops:.3e} FLOP, {nbytes / 1e6:.1f} MB)  twin {plain_ms:.4f} ms  library "
               f"{library_ms:.4f} ms  -> {r['bound_ms'] / ms:.1%} of bound", flush=True)
@@ -388,16 +415,23 @@ def cross_device(api):
     assert wav_diff <= WAV_ATOL, f"wav differs between card and CPU by {wav_diff}"
 
 
-def dim192_model(fc):
-    """The flagship model at `generator.dim: 192`, fused, on the card against
-    the CPU (its twin): batch 2 at 256 frames. Returns the launches of the
-    card's call and how many of its blocks the shape rule gave the kernel."""
+def dim_model(fc, dim, layers=None):
+    """The flagship model at `generator.dim: dim` (each stack cut to `layers`
+    blocks if given), fused, on the card against the CPU (its twin): batch 2
+    at 256 frames. Returns the launches of the card's call (all, and those of
+    the wide path) and how many of its blocks the shape rule gave the kernel."""
     import dataclasses
 
     from optispeech_tpu_torch.models.optispeech import OptiSpeech
 
     cfg = flagship_config()
-    cfg = dataclasses.replace(cfg, generator=dataclasses.replace(cfg.generator, dim=192))
+    g = dataclasses.replace(cfg.generator, dim=dim)
+    if layers:
+        g = dataclasses.replace(
+            g, encoder=dataclasses.replace(g.encoder, num_layers=layers),
+            decoder=dataclasses.replace(g.decoder, num_layers=layers),
+            vocoder=dataclasses.replace(g.vocoder, num_layers=layers))
+    cfg = dataclasses.replace(cfg, generator=g)
     api = OptiSpeech(cfg, seed=0, device="cuda")
     cpu_api = OptiSpeech(cfg, device="cpu",
                          state_dict={k: v.cpu() for k, v in api.generator.state_dict().items()})
@@ -408,23 +442,26 @@ def dim192_model(fc):
                 for b in blocks)
     widths = sorted({(b.pwconv1.in_features, b.pwconv1.out_features) for b in blocks})
     inputs = api.prepare_input(SENTENCE)
-    fc.convnext_block_fused.launches = 0
+    fc.convnext_block_fused.launches = fc.convnext_block_fused.wide_launches = 0
     gpu = api.synthesise_on_device(inputs, 256)
     torch.cuda.synchronize()
-    launches = fc.convnext_block_fused.launches
+    launches, wide = fc.convnext_block_fused.launches, fc.convnext_block_fused.wide_launches
     cpu = cpu_api.synthesise_on_device(inputs, 256)
     dur_equal = torch.equal(gpu["durations"].cpu(), cpu["durations"])
     wav_diff = float((gpu["wav"].cpu() - cpu["wav"]).abs().max())
-    print(f"  generator.dim 192: fused blocks at (C, I) {widths}: {taken} of {len(blocks)} take the "
-          f"kernel by the shape rule, {len(blocks) - taken} run unfused; kernel launches in one "
-          f"decode {launches}", flush=True)
+    print(f"  generator.dim {dim}{f', {layers} blocks a stack' if layers else ''}: fused blocks at "
+          f"(C, I) {widths}: {taken} of {len(blocks)} take the kernel by the shape rule, "
+          f"{len(blocks) - taken} run unfused; kernel launches in one decode {launches}, "
+          f"{wide} of them on the wide path", flush=True)
     print(f"  batch 2, 256 frames: durations equal {dur_equal}; wav max|card - cpu| {wav_diff:.3e} "
           f"(atol {WAV_ATOL}); |wav| max {float(cpu['wav'].abs().max()):.3f}", flush=True)
-    assert dur_equal, "dim 192: durations differ between card and CPU"
-    assert wav_diff <= WAV_ATOL, f"dim 192: wav differs between card and CPU by {wav_diff}"
+    assert dur_equal, f"dim {dim}: durations differ between card and CPU"
+    assert wav_diff <= WAV_ATOL, f"dim {dim}: wav differs between card and CPU by {wav_diff}"
     assert launches == taken, f"expected {taken} kernel launches in one decode, got {launches}"
+    n_wide = sum(b.pwconv1.in_features > fc.MAX_CHANNELS for b in blocks)
+    assert wide == n_wide, f"expected {n_wide} wide-path launches in one decode, got {wide}"
     assert bool(torch.isfinite(gpu["wav"]).all())
-    return launches, taken
+    return launches, wide, taken, len(blocks)
 
 
 def mas_lengths(rng, b, t_feats, t_text):
@@ -463,6 +500,75 @@ def check_mas(mas, device):
     return worst
 
 
+def chain_cycles(lib_path):
+    """Cycles per dependent step of the MAS kernels' two chains (forward,
+    backtrace) from scripts/mas_chain.cu, and the card's maximum SM clock in
+    MHz from nvidia-smi: the chain floor is frames x (forward + backtrace)
+    cycles at that clock."""
+    import ctypes
+
+    lib = ctypes.CDLL(lib_path)
+    lib.mas_chain_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    lib.mas_chain_launch.restype = ctypes.c_int
+    rng = np.random.default_rng(5)
+    inp = torch.as_tensor(rng.normal(size=96).astype(np.float32), device="cuda")
+    out = torch.empty(32, device="cuda")
+    cycles = torch.zeros(2, dtype=torch.int64, device="cuda")
+    n = 4096
+    best = None
+    for _ in range(3):  # the first call loads the module
+        err = lib.mas_chain_launch(inp.data_ptr(), out.data_ptr(), cycles.data_ptr(), n,
+                                   torch.cuda.current_stream().cuda_stream)
+        assert err == 0, f"mas_chain: launch failed with cudaError {err}"
+        torch.cuda.synchronize()
+        per_step = [float(c) / (8 * n) for c in cycles.cpu()]
+        best = per_step if best is None else [min(a, b) for a, b in zip(best, per_step)]
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.split()[0])
+    return {"forward_cycles": best[0], "backtrace_cycles": best[1], "sm_clock_mhz": mhz}
+
+
+def chain_floor_ms(chain, frames):
+    """frames x (forward + backtrace cycles a frame) at the maximum SM clock."""
+    return frames * (chain["forward_cycles"] + chain["backtrace_cycles"]) / (chain["sm_clock_mhz"] * 1e3)
+
+
+def mas_kernel(mas, fn, n_outputs, lp, tl, fl):
+    """A launch of the MAS kernel's C function `fn` (`mas_wavefront_launch`,
+    1 output, or `mas_extract_launch`, 2) on inputs converted and outputs
+    allocated once, as the wrapper makes them, and the outputs: what a
+    kernel's time is taken of (the wrapper adds host work that a short
+    kernel would wait behind)."""
+    lp, tl32, fl32, per_lane, dec = mas._kernel_inputs(lp, tl, fl)
+    b, t_feats, t_text = lp.shape
+    outs = [torch.zeros(b, t_text, device=lp.device) for _ in range(n_outputs)]
+    args = [t.data_ptr() for t in (lp, tl32, fl32, *outs, dec)]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        err = fn(*args, b, t_feats, t_text, per_lane, stream)
+        assert err == 0, f"MAS kernel launch failed with cudaError {err}"
+
+    return launch, outs
+
+
+def shipped_mas_kernel(mas, name, lp, tl, fl):
+    """`mas_kernel`'s launch for the shipped kernel `name`."""
+    fn = getattr(mas._library(name), f"{name}_launch")
+    return mas_kernel(mas, fn, 2 if name == "mas_extract" else 1, lp, tl, fl)[0]
+
+
+def second_shape_ms(mas, name, b, t_feats, t_text, device):
+    """The kernel's time at phase 6's / 9's second case shape (lengths from a
+    seed), where launch and per-item set-up, not the chain, dominate."""
+    rng = np.random.default_rng(6)
+    lp = np.log(rng.dirichlet(np.ones(t_text), size=(b, t_feats)) + 1e-8).astype(np.float32)
+    tl, fl = mas_lengths(rng, b, t_feats, t_text)
+    args = [torch.as_tensor(np.asarray(a), device=device) for a in (lp, tl, fl)]
+    return time_ms(shipped_mas_kernel(mas, name, *args), iters=50)
+
+
 def mas_timing_inputs(device):
     """Log-probs at the training batch's shape with lengths from a seed (the
     timing inputs of both MAS kernels), and the count of valid cells."""
@@ -474,12 +580,15 @@ def mas_timing_inputs(device):
     return tensors, int((tl * fl).sum()), int(fl.max())
 
 
-def time_mas(mas, device):
+def time_mas(mas, device, chain_probe):
     """Kernel and twin times at the training batch's shape; the bound counts
-    the valid region each item's lengths leave (the kernel reads no more)."""
+    the valid region each item's lengths leave (the kernel reads no more),
+    the chain floor the longest item's frames."""
     b, t_feats, t_text = MAS_SHAPE
     (lp_d, tl_d, fl_d), cells, chain = mas_timing_inputs(device)
-    ms = time_ms(lambda: mas.mas_durations(lp_d, tl_d, fl_d), iters=50)
+    ms = time_ms(shipped_mas_kernel(mas, "mas_wavefront", lp_d, tl_d, fl_d), iters=50)
+    wrapper_ms = time_ms(lambda: mas.viterbi_decode(lp_d, tl_d, fl_d)[0], iters=50)
+    small_ms = second_shape_ms(mas, "mas_wavefront", 2, 43, 23, device)
     plain_ms = time_ms(lambda: mas.viterbi_decode_reference(lp_d, tl_d, fl_d), iters=2, repeats=3)
     nbytes = 4 * cells + 4 * b * t_text + 8 * b  # valid log-probs in, durations out, lengths
     bound_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -489,14 +598,20 @@ def time_mas(mas, device):
            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bound_bytes, bound_ops),
            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
            "bytes": nbytes, "full_tensor_bytes": 4 * b * t_feats * t_text,
-           "decision_bytes": 4 * b * t_feats * mas.tokens_per_lane(t_text),
-           "chain_frames": chain}
-    print(f"  {row['shape']}: kernel {ms:.4f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
+           "decision_bytes": mas.decision_bytes(b, t_feats, mas.tokens_per_lane(t_text)),
+           "tokens_per_lane": mas.tokens_per_lane(t_text), "chain_frames": chain,
+           "chain_floor_ms": chain_floor_ms(chain_probe, chain), "chain_probe": chain_probe,
+           "wrapper_ms": wrapper_ms, "ms_2x43x23": small_ms}
+    print(f"  {row['shape']}: kernel {ms:.4f} ms (the wrapper with its bin loss {wrapper_ms:.4f}; "
+          f"at (2, 43, 23) {small_ms:.4f})  bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
           f"{nbytes / 1e6:.1f} MB of valid cells; the whole tensor is "
           f"{row['full_tensor_bytes'] / 1e6:.1f} MB; the kernel also writes and reads "
-          f"{row['decision_bytes'] / 1e6:.1f} MB of decision bits)  dependent chain "
-          f"{row['chain_frames']} frames  twin {plain_ms:.4f} ms  library: none (no single "
-          f"PyTorch call computes MAS)  -> {row['bound_ms'] / ms:.1%} of bound", flush=True)
+          f"{row['decision_bytes'] / 1e3:.1f} KB of decision bits, {row['tokens_per_lane']} tokens a "
+          f"lane)  chain floor {row['chain_floor_ms']:.4f} ms ({chain} frames x "
+          f"({chain_probe['forward_cycles']:.1f} + {chain_probe['backtrace_cycles']:.1f}) cycles at "
+          f"{chain_probe['sm_clock_mhz']:.0f} MHz)  twin {plain_ms:.4f} ms  library: none (no "
+          f"single PyTorch call computes MAS)  -> {row['bound_ms'] / ms:.1%} of bound, "
+          f"{row['chain_floor_ms'] / ms:.1%} of the chain floor", flush=True)
     return row
 
 
@@ -661,13 +776,15 @@ def check_extract(mas, device):
     return worst
 
 
-def time_extract(mas, device):
+def time_extract(mas, device, chain_probe):
     """The extraction kernel's time at the training batch's shape and
     phase 6's lengths; the bound counts the valid cells read once and the
     two (B, T_text) outputs written once."""
     b, t_feats, t_text = MAS_SHAPE
     (lp_d, tl_d, fl_d), cells, chain = mas_timing_inputs(device)
-    ms = time_ms(lambda: mas.mas_extract(lp_d, tl_d, fl_d), iters=50)
+    ms = time_ms(shipped_mas_kernel(mas, "mas_extract", lp_d, tl_d, fl_d), iters=50)
+    wrapper_ms = time_ms(lambda: mas.viterbi_decode_extract(lp_d, tl_d, fl_d)[0], iters=50)
+    small_ms = second_shape_ms(mas, "mas_extract", 2, 43, 12, device)
     plain_ms = time_ms(lambda: mas.extract_reference(lp_d, tl_d, fl_d), iters=2, repeats=3)
     nbytes = 4 * cells + 2 * 4 * b * t_text + 8 * b
     bound_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -675,11 +792,14 @@ def time_extract(mas, device):
     row = {"shape": f"B={b} T_feats={t_feats} T_text={t_text} float32, phase 6's lengths",
            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bound_bytes, bound_ops),
            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations", "bytes": nbytes,
-           "chain_frames": chain}
-    print(f"  {row['shape']}: kernel {ms:.4f} ms  bound {row['bound_ms']:.4f} ms "
-          f"({row['bound_by']}: {nbytes / 1e6:.1f} MB)  dependent chain {chain} frames  twin "
-          f"{plain_ms:.4f} ms  library: none (no single PyTorch call computes MAS)  -> "
-          f"{row['bound_ms'] / ms:.1%} of bound", flush=True)
+           "chain_frames": chain, "chain_floor_ms": chain_floor_ms(chain_probe, chain),
+           "wrapper_ms": wrapper_ms, "ms_2x43x12": small_ms}
+    print(f"  {row['shape']}: kernel {ms:.4f} ms (the wrapper with its bin loss {wrapper_ms:.4f}; "
+          f"at (2, 43, 12) {small_ms:.4f})  bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {nbytes / 1e6:.1f} MB)  chain floor "
+          f"{row['chain_floor_ms']:.4f} ms ({chain} frames)  twin {plain_ms:.4f} ms  library: none "
+          f"(no single PyTorch call computes MAS)  -> {row['bound_ms'] / ms:.1%} of bound, "
+          f"{row['chain_floor_ms'] / ms:.1%} of the chain floor", flush=True)
     return row
 
 
@@ -707,18 +827,26 @@ def train_entry_point(fc, mas, bare_ms):
     both. `bare_ms` are phase 7's synchronised step times."""
     import dataclasses
     import shutil
-
-    from optispeech_tpu_torch.cli import train as cli
-    from optispeech_tpu_torch.training.checkpoint import TrainCheckpointManager
-    from optispeech_tpu_torch.training.state import init_train_state
-    from optispeech_tpu_torch.training.trainer import Trainer
+    import tempfile
 
     cfg = training_config()
     cfg = dataclasses.replace(
         cfg, log_every_n_steps=1, val_every_n_steps=4, ckpt_every_n_steps=4,
         train_args=dataclasses.replace(cfg.train_args, evaluate_periodicity=True))
-    out_dir = Path(__file__).resolve().parent / "runs" / "chip_smoke_trainer"
-    shutil.rmtree(out_dir, ignore_errors=True)
+    # the run (a 666 MiB checkpoint) goes outside the checkout and is deleted after
+    out_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_trainer_"))
+    try:
+        return _train_entry_point(fc, mas, bare_ms, cfg, out_dir)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def _train_entry_point(fc, mas, bare_ms, cfg, out_dir):
+    from optispeech_tpu_torch.cli import train as cli
+    from optispeech_tpu_torch.training.checkpoint import TrainCheckpointManager
+    from optispeech_tpu_torch.training.state import init_train_state
+    from optispeech_tpu_torch.training.trainer import Trainer
+
     t_data = time.perf_counter()
     train, val = trainer_loaders(cfg)
     print(f"  synthetic corpus: {TRAIN_ITEMS} train / {VAL_ITEMS} val utterances, tokens "
@@ -1011,7 +1139,8 @@ def main() -> int:
 
     phase("2. build")
     t_build = time.perf_counter()
-    built = _build.build_kernels()
+    probe = Path(__file__).resolve().parent / "scripts" / "mas_chain.cu"
+    built = _build.build_kernels(sources={"mas_chain": probe})
     fused = {"convnext_block": ("B1", fc.PADDED_CHANNELS, fc.kernel_layout),
              "convnext_block_int8": ("B2", fc.INT8_CHANNELS, fc.kernel_layout_int8)}
     for name, info in built.items():
@@ -1021,7 +1150,8 @@ def main() -> int:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    {line.strip()}")
-    print(f"  all kernels built in {time.perf_counter() - t_build:.1f} s (in parallel)")
+    build_s = time.perf_counter() - t_build
+    print(f"  all kernels built in {build_s:.1f} s (in parallel)")
     ptxas = {name: fused_ptxas(built[name], *spec) for name, spec in fused.items()}
 
     phase("3. kernel check (kernel against twin on the card)")
@@ -1034,7 +1164,9 @@ def main() -> int:
     print(f"  OptiSpeech(ExperimentConfig(), en-g2p, fused decoder + trunk), seed 0: "
           f"{n_params} parameters", flush=True)
     launches = main_path(fc, mas, api)
-    dim192_launches, _ = dim192_model(fc)
+    dim192_launches = dim_model(fc, 192)[0]
+    dim_wide_launches, wide_launches, taken, n_blocks = dim_model(fc, DIM_WIDE, layers=2)
+    assert taken == n_blocks, f"dim {DIM_WIDE}: {n_blocks - taken} blocks ran unfused"
 
     phase("5. cross-device (card kernel against CPU twin)")
     cross_device(api)
@@ -1042,7 +1174,8 @@ def main() -> int:
 
     phase("6. MAS kernel check (kernel against twin on the card)")
     mas_err = check_mas(mas, device)
-    mas_row = time_mas(mas, device)
+    chain_probe = chain_cycles(built["mas_chain"]["path"])
+    mas_row = time_mas(mas, device, chain_probe)
 
     phase("7. training at full width")
     mas_launches, bare_ms = train_full_width(fc, mas)
@@ -1052,7 +1185,7 @@ def main() -> int:
 
     phase("9. extraction MAS kernel check (kernel against twin on the card)")
     ext_err = check_extract(mas, device)
-    ext_row = time_extract(mas, device)
+    ext_row = time_extract(mas, device, chain_probe)
 
     phase("10. the trainer at full width (cli/train.py::run, then a resume)")
     gc.collect()
@@ -1078,12 +1211,26 @@ def main() -> int:
         "replaces": "optispeech_tpu/ops/pallas_convnext.py:224",
         "launches": launches, "launch_path": "phase 4, synthesis",
         "launches_dim192_decode": dim192_launches,
-        "max_abs_err": max_abs_err,
+        "max_abs_err": max_abs_err["narrow"],
         "ms": trunk["ms"], "plain_ms": trunk["plain_ms"], "bound_ms": trunk["bound_ms"],
         "bound_by": trunk["bound_by"], "library_ms": trunk["library_ms"],
         "wrapper_ms": trunk["wrapper_ms"], "shape": trunk["shape"],
-        "other_shapes": [r for w, r in rows.items() if w != "trunk"],
+        "other_shapes": [r for w, r in rows.items() if w != "trunk" and r["path"] == "narrow"],
         "ptxas": ptxas["convnext_block"],
+    }
+    wide = rows["c768"]
+    wide_kernel = {
+        "name": "convnext_block_fused_wide", "route": "cuda",
+        "source": "optispeech_tpu_torch/csrc/convnext_block_wide.cu",
+        "replaces": "optispeech_tpu/ops/pallas_convnext.py:224",
+        "launches": wide_launches,
+        "launch_path": f"phase 4, one decode of the generator.dim {DIM_WIDE} model (2 blocks a stack)",
+        "launches_all_paths_of_that_decode": dim_wide_launches,
+        "max_abs_err": max_abs_err["wide"],
+        "ms": wide["ms"], "plain_ms": wide["plain_ms"], "bound_ms": wide["bound_ms"],
+        "bound_by": wide["bound_by"], "library_ms": wide["library_ms"],
+        "wrapper_ms": wide["wrapper_ms"], "shape": wide["shape"],
+        "other_shapes": [r for w, r in rows.items() if w != "c768" and r["path"] == "wide"],
     }
     mas_kernel = {
         "name": "viterbi_decode", "route": "cuda",
@@ -1095,6 +1242,8 @@ def main() -> int:
         "ms": mas_row["ms"], "plain_ms": mas_row["plain_ms"], "bound_ms": mas_row["bound_ms"],
         "bound_by": mas_row["bound_by"], "library_ms": None, "shape": mas_row["shape"],
         "bin_loss_rel_err": mas_err["bin_loss_rel"], "grad_max_abs_err": mas_err["grad"],
+        "chain_floor_ms": mas_row["chain_floor_ms"], "chain_probe": mas_row["chain_probe"],
+        "wrapper_ms": mas_row["wrapper_ms"], "ms_2x43x23": mas_row["ms_2x43x23"],
     }
     extract_kernel = {
         "name": "viterbi_decode_extract", "route": "cuda",
@@ -1106,6 +1255,8 @@ def main() -> int:
         "ms": ext_row["ms"], "plain_ms": ext_row["plain_ms"], "bound_ms": ext_row["bound_ms"],
         "bound_by": ext_row["bound_by"], "library_ms": None, "shape": ext_row["shape"],
         "binsum_rel_err": ext_err["binsum_rel"], "bin_loss_rel_err": ext_err["bin_loss_rel"],
+        "chain_floor_ms": ext_row["chain_floor_ms"], "ms_2x43x12": ext_row["ms_2x43x12"],
+        "wrapper_ms": ext_row["wrapper_ms"],
     }
     int8_trunk = int8_rows["trunk"]
     int8_kernel = {
@@ -1124,8 +1275,8 @@ def main() -> int:
         "ab": {arm: ab[arm] for arm in ("xla_bf16", "fused_bf16", "fused_int8", "oracle_f32")},
         "ab_int8_rel_err_x_f32": ab_f32_err,
     }
-    print(f"\n  total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [kernel, mas_kernel, extract_kernel, int8_kernel]}))
+    print(f"\n  build {build_s:.1f} s; total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": [kernel, wide_kernel, mas_kernel, extract_kernel, int8_kernel]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -16,23 +16,27 @@
 // Bound on this card: bytes. The kernel must read lp's valid region once,
 // sum_b fl*tl*4 bytes (42.6 MB at B=128, F=768, T=192 with tl in [96, 192]
 // and fl in [384, 768]: 0.0127 ms at 3.35 TB/s), and write two (B, T) f32
-// outputs; it does two operations per cell. A second floor is the dependent
-// chain: fl steps in sequence per item, forward and back.
+// outputs; it does two operations per cell. The floor that binds is the
+// dependent chain: fl frames in sequence per item, forward and back.
 //
-// Design (simple first, see PERF.md for its time against the bound): the
-// TPU kernel keeps the whole (F, T) f32 Q table in VMEM (590 KB at
-// 768 x 192, more than a block's 227 KB of shared memory) and backtraces
-// with one-hot reductions. Here the backtrace only needs the take-left bit
+// Design: the TPU kernel keeps the whole (F, T) f32 Q table in VMEM (590 KB
+// at 768 x 192, more than a block's 227 KB of shared memory) and backtraces
+// with one-hot reductions. Here the backtrace needs only the take-left bit
 // Q[j-1][a-1] >= Q[j-1][a], so the forward (mas_forward.cuh, shared with
-// mas_wavefront.cu: one warp per item, Q row in registers, ballot words)
-// records one bit per cell in a (B, F, C) scratch instead of Q. The
-// backtrace runs in the same warp, 32 frames at a time: the lanes load the
-// two decision words the path can touch (it moves at most one token a
-// frame), the warp walks the frames with shuffles and lane k keeps the token
-// of frame jh - k; then each lane reads its frame's log-prob at that token
-// (32 loads in flight, not one per frame), and the warp adds them in frame
-// order with shuffles, lane 0 writing each token's run length and sum when
-// the run ends. Reads beyond the valid region: one cell per valid frame.
+// mas_wavefront.cu: one warp per item, contiguous tokens per lane, one
+// shuffle and one decision word a frame, log-probs staged by bulk copies)
+// records one bit per cell instead of Q. The backtrace walks each window of
+// NW <= 32 frames once: the lanes gather each frame's decisions at the 32
+// tokens the path can reach in the window (`mas::window_word`), the walk's
+// chain is a shift and a subtract a frame, and lane k keeps the token of
+// the window's k-th frame from the top. After the walk each lane loads its
+// frame's log-prob at that token (NW loads in flight); the walk two windows
+// down folds them in (by then they have arrived), frame by frame from the
+// top, with shuffles: a token's
+// run ends where the token changes, and lane 0 writes its length and its
+// sum. The fold is a second chain beside the walk's, not a second walk.
+// Reads beyond the valid region: none; one extra read of a cell per valid
+// frame.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -43,85 +47,124 @@ namespace {
 
 using mas::FULL;
 
-template <int C>
+template <int K>
 __global__ void __launch_bounds__(32)
 mas_extract_kernel(const float* __restrict__ lp, const int* __restrict__ text_lengths,
                    const int* __restrict__ feats_lengths, float* __restrict__ durations,
-                   float* __restrict__ binsum, uint32_t* __restrict__ dec, int n_feats,
-                   int n_text) {
-  __shared__ float ring[mas::ring_frames<C>()][32 * C];
+                   float* __restrict__ binsum, typename mas::Layout<K>::Word* __restrict__ dec,
+                   int batch, int n_feats, int n_text) {
+  using L = mas::Layout<K>;
+  using Word = typename L::Word;
+  extern __shared__ __align__(128) unsigned char smem[];
   const int lane = threadIdx.x;
   const int b = blockIdx.x;
   const int tl = text_lengths[b], fl = feats_lengths[b];
   const float* lpb = lp + static_cast<size_t>(b) * n_feats * n_text;
-  uint32_t* decb = dec + static_cast<size_t>(b) * n_feats * C;
+  const float* lp_end = lp + static_cast<size_t>(batch) * n_feats * n_text;
+  Word* decb = dec + static_cast<size_t>(b) * mas::decision_rows<K>(n_feats) * 32;
   float* ds = durations + static_cast<size_t>(b) * n_text;
   float* bs = binsum + static_cast<size_t>(b) * n_text;
 
-  mas::forward<C>(lpb, decb, tl, fl, n_text, ring);
+  mas::forward<K>(lpb, lp_end, decb, tl, fl, n_text, mas::ring_of<K>(smem),
+                  mas::barriers_of<K>(smem));
 
   // ---- backtrace from frame fl-1 (pinned to token tl-1) down to frame 0 --
   for (int i = lane; i < n_text; i += 32) {
     ds[i] = 0.f;
     bs[i] = 0.f;
   }
-  __syncwarp();  // orders lane 0's decision words and the zeros before the reads below
-  int a = tl - 1;    // token of the next frame to walk (warp-uniform)
-  int cur = tl - 1;  // token of the open run
-  int run = 0;       // its frames so far
-  float acc = 0.f;   // its log-probs so far, from the highest frame down
-  for (int jh = fl - 1; jh >= 0; jh -= 32) {
-    const int n = jh < 31 ? jh + 1 : 32;  // frames jh .. jh - n + 1
-    const int w = a >> 5;
-    const int jj = jh - lane;  // lane k holds frame jh - k
-    uint32_t hi = 0, lo = 0;
-    if (lane < n && jj >= 1) {
-      hi = decb[static_cast<size_t>(jj) * C + w];
-      if (w > 0) lo = decb[static_cast<size_t>(jj) * C + w - 1];
+  __syncwarp();  // orders the decision rows and the zeros before the reads below
+  int a = tl - 1;     // the walk's token at the next frame to walk (warp-uniform)
+  int cur = tl - 1;   // the fold's open run: its token,
+  int run = 0;        // its frames so far
+  float acc = 0.f;    // and its log-probs so far, from the highest frame down
+  // frame s-th from the top of a window: its token (-1 past fl) and log-prob
+  // at lane s, folded two windows later, so that the log-prob's load has a
+  // window's walk to arrive in: `older` the window above `newer`
+  int older_tok = -1, newer_tok = -1;
+  float older_v = 0.f, newer_v = 0.f;
+  // the older window's s-th frame from its top, with selects rather than
+  // branches (a frame past fl has token -1 and leaves the run as it is)
+  auto fold = [&](int s) {
+    const int tok = __shfl_sync(FULL, older_tok, s);
+    const float v = __shfl_sync(FULL, older_v, s);
+    const bool valid = tok >= 0;
+    const bool ends = valid && tok != cur;  // the open run ends above this frame
+    if (ends && lane == 0) {
+      ds[cur] = static_cast<float>(run);
+      bs[cur] = acc;
     }
-    int tok = 0;
-    for (int k = 0; k < n; ++k) {
-      const uint32_t h = __shfl_sync(FULL, hi, k);
-      const uint32_t l = __shfl_sync(FULL, lo, k);
-      if (lane == k) tok = a;  // frame jh - k sits at token a
-      const uint32_t word = ((a >> 5) == w) ? h : l;
-      if (a > 0 && ((word >> (a & 31)) & 1u)) a -= 1;  // frame 0's word is 0
-    }
-    const float v = lane < n ? lpb[static_cast<size_t>(jj) * n_text + tok] : 0.f;
-    for (int k = 0; k < n; ++k) {
-      const int t = __shfl_sync(FULL, tok, k);
-      const float x = __shfl_sync(FULL, v, k);
-      if (t != cur) {
-        if (lane == 0) {
-          ds[cur] = static_cast<float>(run);
-          bs[cur] = acc;
-        }
-        cur = t;
-        run = 0;
-        acc = 0.f;
+    const float sum = __fadd_rn(ends ? 0.f : acc, v);
+    acc = valid ? sum : acc;
+    run = ends ? 1 : run + valid;
+    cur = ends ? tok : cur;
+  };
+  const int top = (fl - 1) / L::NW;
+  Word next[L::D];
+  mas::load_window<K>(decb, top, fl, next);
+#pragma unroll 1
+  for (int w = top; w >= 0; --w) {
+    Word rows[L::D];
+#pragma unroll
+    for (int r = 0; r < L::D; ++r) rows[r] = next[r];
+    if (w > 0) mas::load_window<K>(decb, w - 1, fl, next);
+    int tok = -1;  // lane s: the token of the window's s-th frame from its top
+    if constexpr (K <= 32) {
+      const int base = a > 31 ? a - 31 : 0;  // the path stays in base .. a here
+      const uint32_t window = mas::window_word<K>(rows, base);
+      int d = a - base;
+#pragma unroll
+      for (int s = 0; s < L::NW; ++s) {
+        fold(s);
+        const int j = w * L::NW + L::NW - 1 - s;
+        const uint32_t ws = __shfl_sync(FULL, window, s);
+        if (j >= fl) continue;
+        if (lane == s) tok = base + d;
+        if (j > 0) d -= (ws >> d) & 1u;
       }
-      ++run;
-      acc = __fadd_rn(acc, x);
+      a = base + d;
+    } else {
+#pragma unroll
+      for (int r = L::D - 1; r >= 0; --r) {  // one frame a row
+        const int s = L::NW - 1 - r;
+        fold(s);
+        const int j = w * L::NW + r;
+        if (j >= fl) continue;
+        if (lane == s) tok = a;
+        if (j > 0) a -= mas::decision_at<K>(rows[r], a);
+      }
     }
+    older_tok = newer_tok;
+    older_v = newer_v;
+    newer_tok = tok;
+    newer_v = tok >= 0 ? lpb[static_cast<size_t>(w * L::NW + L::NW - 1 - lane) * n_text + tok] : 0.f;
   }
+#pragma unroll
+  for (int s = 0; s < L::NW; ++s) fold(s);  // the last two windows' frames
+  older_tok = newer_tok;
+  older_v = newer_v;
+#pragma unroll
+  for (int s = 0; s < L::NW; ++s) fold(s);
   if (lane == 0) {
     ds[cur] = static_cast<float>(run);
     bs[cur] = acc;
   }
 }
 
-template <int C>
-cudaError_t launch(const float* lp, const int* tl, const int* fl, float* ds, float* bs,
-                   uint32_t* dec, int batch, int n_feats, int n_text, cudaStream_t stream) {
-  mas_extract_kernel<C><<<batch, 32, 0, stream>>>(lp, tl, fl, ds, bs, dec, n_feats, n_text);
-  return cudaGetLastError();
+template <int K>
+cudaError_t launch(const float* lp, const int* tl, const int* fl, float* ds, float* bs, void* dec,
+                   int batch, int n_feats, int n_text, cudaStream_t stream) {
+  return mas::launch_warp_per_item<K>(mas_extract_kernel<K>, batch, stream, lp, tl, fl, ds, bs,
+                                      static_cast<typename mas::Layout<K>::Word*>(dec), batch,
+                                      n_feats, n_text);
 }
 
 }  // namespace
 
-// lp (B, F, T) f32; text_lengths, feats_lengths (B,) int32 in [1, T] and
-// [1, F]; durations and binsum (B, T) f32 out; dec a (B, F, tokens_per_lane)
-// uint32 scratch, tokens_per_lane a power of two with 32 * tokens_per_lane >= T.
+// lp (B, F, T) f32, 16-byte aligned; text_lengths, feats_lengths (B,) int32
+// in [1, T] and [1, F]; durations and binsum (B, T) f32 out; dec scratch of
+// B x ceil(F / FW) x 32 words (ops/mas.py::decision_bytes), tokens_per_lane
+// one of ops/mas.py::TOKENS_PER_LANE with 32 * tokens_per_lane >= T.
 extern "C" int mas_extract_launch(const void* lp, const void* text_lengths,
                                   const void* feats_lengths, void* durations, void* binsum,
                                   void* dec, int batch, int n_feats, int n_text,
@@ -133,16 +176,12 @@ extern "C" int mas_extract_launch(const void* lp, const void* text_lengths,
   const int* fl = static_cast<const int*>(feats_lengths);
   float* ds = static_cast<float*>(durations);
   float* bs = static_cast<float*>(binsum);
-  uint32_t* d = static_cast<uint32_t*>(dec);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (tokens_per_lane) {
-    case 1: return launch<1>(l, tl, fl, ds, bs, d, batch, n_feats, n_text, s);
-    case 2: return launch<2>(l, tl, fl, ds, bs, d, batch, n_feats, n_text, s);
-    case 4: return launch<4>(l, tl, fl, ds, bs, d, batch, n_feats, n_text, s);
-    case 8: return launch<8>(l, tl, fl, ds, bs, d, batch, n_feats, n_text, s);
-    case 16: return launch<16>(l, tl, fl, ds, bs, d, batch, n_feats, n_text, s);
-    case 32: return launch<32>(l, tl, fl, ds, bs, d, batch, n_feats, n_text, s);
-    case 64: return launch<64>(l, tl, fl, ds, bs, d, batch, n_feats, n_text, s);
+#define MAS_CASE(K) \
+  case K: return launch<K>(l, tl, fl, ds, bs, dec, batch, n_feats, n_text, s);
+    MAS_TOKENS_PER_LANE(MAS_CASE)
+#undef MAS_CASE
     default: return cudaErrorInvalidValue;
   }
 }

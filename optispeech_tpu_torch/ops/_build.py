@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -41,35 +42,44 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path(name: str) -> Path:
-    parts = [(CSRC / f"{name}.cu").read_bytes()]
+def library_path(name: str, source: Path | None = None) -> Path:
+    parts = [(source or CSRC / f"{name}.cu").read_bytes()]
     parts += [header.read_bytes() for header in sorted(CSRC.glob("*.cuh"))]
     digest = hashlib.sha1(b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build_kernels(names=None) -> dict:
+def build_kernels(names=None, sources=None) -> dict:
     """Compile the named kernels (default: every source in csrc/) unless a
     build of the same source exists; one nvcc per source, run in parallel.
+    `sources` maps further names to .cu files outside csrc/ (a measuring
+    script's probes), built beside them the same way.
 
     Returns {name: {"path", "seconds", "log"}}; `log` holds nvcc's output
     (ptxas register and shared-memory counts), empty when nothing was built."""
     names = kernel_names() if names is None else list(names)
+    sources = {**{name: CSRC / f"{name}.cu" for name in names}, **(sources or {})}
     result, running = {}, {}
-    for name in names:
-        path = library_path(name)
+    for name, source in sources.items():
+        path = library_path(name, source)
         if path.exists():
             result[name] = {"path": str(path), "seconds": 0.0, "log": ""}
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running[name] = (proc, tmp, path, time.perf_counter())
-    failed = []
-    for name, (proc, tmp, path, t0) in running.items():
+
+    def finish(item):  # each build's output and its own seconds, read on a thread
+        name, (proc, tmp, path, t0) = item
         log, _ = proc.communicate()
-        seconds = time.perf_counter() - t0
+        return name, proc, tmp, path, log, time.perf_counter() - t0
+
+    failed = []
+    with ThreadPoolExecutor(max_workers=max(1, len(running))) as pool:
+        done = list(pool.map(finish, running.items()))
+    for name, proc, tmp, path, log, seconds in done:
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{log}")
             continue

@@ -13,9 +13,11 @@ w1 (C, I), w2 (I, C). Both blocks compute the GELU as the JAX kernels do,
   once (`kernel_weights`) and is launched by `convnext_block_launch`; the
   wrapper packs per call unless given the pack. Its twin is
   `convnext_block_reference`. It takes any C up to `MAX_CHANNELS` and any
-  I: the pack pads both to multiples of 64 with zeros. `kernel_takes(T, C,
-  I)` is JAX's `pick_tile(T, C, I) is not None`: a model runs the block
-  fused where it holds and unfused where it does not, as JAX does.
+  I: the pack pads both to multiples of 64 with zeros. Wider blocks, up to
+  `WIDE_MAX_CHANNELS`, launch its wide path (`csrc/convnext_block_wide.cu`)
+  on the same pack. `kernel_takes(T, C, I)` is JAX's `pick_tile(T, C, I)
+  is not None`: a model runs the block fused where it holds and unfused
+  where it does not, as JAX does; the wrapper takes every shape it accepts.
 - `convnext_block_fused_int8` (B2, `csrc/convnext_block_int8.cu`): both
   products int8 x int8 -> int32, with dynamic per-frame activation scales
   (`quantize_rows_int8`) and per-output-channel weight scales
@@ -24,7 +26,8 @@ w1 (C, I), w2 (I, C). Both blocks compute the GELU as the JAX kernels do,
   `convnext_block_int8_launch`; the wrapper packs per call unless given the
   pack. Its twin is `convnext_block_int8_reference`.
 - Each wrapper launches its kernel for a CUDA tensor or raises, and runs its
-  twin for a CPU tensor; `<wrapper>.launches` counts kernel launches.
+  twin for a CPU tensor; `<wrapper>.launches` counts kernel launches
+  (`convnext_block_fused.wide_launches` those of B1's wide path).
 - The kernels are built with nvcc into `build/` beside the package at first
   use and loaded with ctypes (`ops/_build.py`).
 """
@@ -38,8 +41,11 @@ import torch
 from . import _build
 
 HALO = 3  # k=7 depthwise conv, symmetric
-MAX_CHANNELS = 512  # B1 takes C up to this width (its accumulator and shared memory)
-CHANNELS = range(1, MAX_CHANNELS + 1)
+MAX_CHANNELS = 512  # convnext_block.cu takes C up to this width (its accumulator and shared memory)
+# convnext_block_wide.cu takes the wider blocks up to this width (its LayerNorm
+# keeps C float32 in shared memory); JAX's rule tiles none wider than 16,298
+WIDE_MAX_CHANNELS = 16384
+CHANNELS = range(1, WIDE_MAX_CHANNELS + 1)
 I_CHUNK = 64  # B1 walks I in chunks of this width
 PADDED_CHANNELS = tuple(range(I_CHUNK, MAX_CHANNELS + 1, I_CHUNK))  # B1's instantiations
 INV_SQRT2 = 1.0 / math.sqrt(2.0)
@@ -75,19 +81,31 @@ def gelu_erf(u):
     return 0.5 * u * (1.0 + _erf(u * INV_SQRT2))
 
 
-def convnext_block_reference(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma):
-    """Plain PyTorch twin of the kernel, same contract and arithmetic."""
-    t = x.shape[1]
+def _dwconv_layernorm(x, dw, dwb, lnw, lnb):
+    """dwconv (taps k = 0..6, then the bias) and LayerNorm in float32, the
+    LayerNorm's row sums by halves (`_tree_sum`) and its 1/sqrt a division
+    by a rounded square root: a fixed order that a kernel can repeat, so that
+    on the card the kernel's h can equal the twin's bit for bit."""
+    t, c = x.shape[1], x.shape[2]
     xf = x.float()
     pad = torch.nn.functional.pad(xf, (0, 0, HALO, HALO))
     acc = torch.zeros_like(xf)
     for k in range(7):
         acc = acc + pad[:, k:k + t, :] * dw[k].float()
     acc = acc + dwb.float()
-    mean = acc.mean(dim=-1, keepdim=True)
+    mean = _div(_tree_sum(acc), float(c))
     centred = acc - mean
-    var = (centred * centred).mean(dim=-1, keepdim=True)
-    h = centred * torch.rsqrt(var + 1e-6) * lnw.float() + lnb.float()
+    var = _div(_tree_sum(centred * centred), float(c))
+    return centred * _div(1.0, torch.sqrt(var + 1e-6)) * lnw.float() + lnb.float()
+
+
+def convnext_block_reference(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma):
+    """Plain PyTorch twin of the kernel, same contract and arithmetic; its
+    dwconv and LayerNorm are `_dwconv_layernorm`'s, which the wide path
+    repeats bit for bit (convnext_block.cu's own LayerNorm sums by warp
+    shuffles, within an ulp of it)."""
+    xf = x.float()
+    h = _dwconv_layernorm(x, dw, dwb, lnw, lnb)
     h1 = gelu_erf(_bf16_matmul(h, w1) + b1.float())
     h2 = _bf16_matmul(h1, w2) + b2.float()
     return (xf + gamma.float() * h2).to(x.dtype)
@@ -106,8 +124,9 @@ def convnext_block_fused(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma, *, packed=
         x: (B, T, C) float32 or bfloat16, any T >= 1.
         dw: (7, C) depthwise kernel; dwb, lnw, lnb, b2, gamma: (C,).
         w1: (C, I); b1: (I,); w2: (I, C). On the card C is at most
-            MAX_CHANNELS, w1 and w2 are bfloat16 and every other parameter
-            float32, all contiguous.
+            WIDE_MAX_CHANNELS (above MAX_CHANNELS the wide path runs), w1
+            and w2 are bfloat16 and every other parameter float32, all
+            contiguous.
         packed: `kernel_weights(w1, w2)`, if the caller keeps it; otherwise
             the weights are packed on each call on the card. Ignored on the CPU.
 
@@ -124,6 +143,7 @@ def convnext_block_fused(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma, *, packed=
 
 
 convnext_block_fused.launches = 0
+convnext_block_fused.wide_launches = 0  # of those, the wide path's (C > MAX_CHANNELS)
 
 
 # JAX's tile rule (optispeech_tpu/ops/pallas_convnext.py::pick_tile): the
@@ -137,7 +157,7 @@ def kernel_takes(frames: int, channels: int, inter: int) -> bool:
     I = `inter` fused: JAX's `pick_tile(T, C, I) is not None`, its rule in
     `optispeech_tpu/models/modules/convnext.py:50-52`. Decided by the shape
     alone, the same on every device. B1 itself takes any T and any I, and C
-    up to MAX_CHANNELS; its wrapper raises on a card for a wider block."""
+    up to WIDE_MAX_CHANNELS, which holds every C this rule accepts."""
     return any(frames % tile == 0 and frames >= tile
                and tile * (3 * channels + inter) * 4 + 4 * channels * inter <= JAX_VMEM_BYTES
                for tile in JAX_TILES)
@@ -207,22 +227,30 @@ def _check_packed(x, packed, b1):
 
 def convnext_block_launch(x, dw, dwb, lnw, lnb, packed, b1, b2, gamma):
     """Launch B1 on weights from `kernel_weights`; the caller has checked x
-    and the float32 parameters (the wrapper does)."""
+    and the float32 parameters (the wrapper does). Above MAX_CHANNELS it
+    launches the wide path, on the same pack, with a bf16 scratch for h."""
     _check_packed(x, packed, b1)
     if x.device.type != "cuda":
         raise ValueError(f"convnext_block_launch: no kernel for device {x.device}")
     b, t, c = x.shape
     out = torch.empty_like(x)
+    args = [x.data_ptr(), out.data_ptr(), dw.data_ptr(), dwb.data_ptr(), lnw.data_ptr(),
+            lnb.data_ptr(), packed.data_ptr(), b1.data_ptr(), b2.data_ptr(), gamma.data_ptr()]
+    if c <= MAX_CHANNELS:
+        lib, fn = _library(), "convnext_block_fused_launch"
+    else:
+        lib, fn = _library("convnext_block_wide"), "convnext_block_wide_launch"
+        h_img = torch.empty(b * -(-t // I_CHUNK) * I_CHUNK * padded_width(c), dtype=torch.bfloat16,
+                            device=x.device)
+        args.append(h_img.data_ptr())
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = _library().convnext_block_fused_launch(
-            x.data_ptr(), out.data_ptr(), dw.data_ptr(), dwb.data_ptr(), lnw.data_ptr(),
-            lnb.data_ptr(), packed.data_ptr(), b1.data_ptr(), b2.data_ptr(), gamma.data_ptr(),
-            b, t, c, b1.shape[0], int(x.dtype == torch.bfloat16), stream,
-        )
+        err = getattr(lib, fn)(*args, b, t, c, b1.shape[0], int(x.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"convnext_block_fused: kernel launch failed with cudaError {err}")
     convnext_block_fused.launches += 1
+    if c > MAX_CHANNELS:
+        convnext_block_fused.wide_launches += 1
     return out
 
 
@@ -313,19 +341,11 @@ def convnext_block_int8_reference(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma):
     Two steps have an order of their own, which the kernel repeats: the
     LayerNorm's row sums go by halves (`_tree_sum`, where JAX's `mean`
     reduces in XLA's order), and its 1/sqrt is a division by a rounded
-    square root (where JAX calls `rsqrt`). Each moves h by an ulp at most.
+    square root (where JAX calls `rsqrt`): `_dwconv_layernorm`, shared with
+    the bf16 twin. Each moves h by an ulp at most.
     """
-    t, c = x.shape[1], x.shape[2]
     xf = x.float()
-    pad = torch.nn.functional.pad(xf, (0, 0, HALO, HALO))
-    acc = torch.zeros_like(xf)
-    for k in range(7):
-        acc = acc + pad[:, k:k + t, :] * dw[k]
-    acc = acc + dwb
-    mean = _div(_tree_sum(acc), float(c))
-    centred = acc - mean
-    var = _div(_tree_sum(centred * centred), float(c))
-    h = centred * _div(1.0, torch.sqrt(var + 1e-6)) * lnw + lnb
+    h = _dwconv_layernorm(x, dw, dwb, lnw, lnb)
 
     def qmat(h, w, b):
         wq, ws = quantize_weight_int8(w)
@@ -426,6 +446,7 @@ def kernel_layout_int8(channels: int) -> dict:
 
 _ENTRY_POINTS = {  # library -> (C function, number of pointer and int arguments)
     "convnext_block": ("convnext_block_fused_launch", 10, 5),
+    "convnext_block_wide": ("convnext_block_wide_launch", 11, 5),
     "convnext_block_int8": ("convnext_block_int8_launch", 12, 5),
 }
 

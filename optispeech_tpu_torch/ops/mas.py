@@ -43,7 +43,9 @@ import torch
 from . import _build
 
 BIG_NEG = -1e9
-TOKENS_PER_LANE = (1, 2, 4, 8, 16, 32, 64)  # the kernel's template instantiations
+# the kernels' template instantiations: the contiguous tokens each of the
+# warp's 32 lanes holds (csrc/mas_forward.cuh, MAS_TOKENS_PER_LANE)
+TOKENS_PER_LANE = (*range(1, 17), 20, 24, 28, 32, 40, 48, 56, 64)
 
 
 def _lengths(text_lengths, feats_lengths, t_text, t_feats):
@@ -138,11 +140,20 @@ def viterbi_decode_extract_reference(log_p_attn, text_lengths, feats_lengths):
 
 
 def tokens_per_lane(t_text: int) -> int:
-    """Tokens each of the warp's 32 lanes holds for T_text tokens."""
-    for c in TOKENS_PER_LANE:
-        if 32 * c >= t_text:
-            return c
+    """Tokens each of the warp's 32 lanes holds for T_text tokens: the
+    smallest instantiated K with 32 K >= T_text."""
+    for k in TOKENS_PER_LANE:
+        if 32 * k >= t_text:
+            return k
     raise ValueError(f"the kernel takes T_text <= {32 * TOKENS_PER_LANE[-1]}, got {t_text}")
+
+
+def decision_bytes(b: int, t_feats: int, per_lane: int) -> int:
+    """Bytes of the kernels' decision scratch: per item ceil(T_feats / FW)
+    rows of 32 words, a lane's K bits of FW = 32 // K frames to a 32-bit
+    word (one frame to a 64-bit word for K > 32)."""
+    frames_per_word, word = (32 // per_lane, 4) if per_lane <= 32 else (1, 8)
+    return b * -(-t_feats // frames_per_word) * 32 * word
 
 
 def _kernel_inputs(log_p_attn, text_lengths, feats_lengths):
@@ -159,9 +170,11 @@ def _kernel_inputs(log_p_attn, text_lengths, feats_lengths):
                              f"got {tuple(lengths.shape)} on {lengths.device}")
     per_lane = tokens_per_lane(t_text)
     lp = log_p_attn.detach().float().contiguous()
+    if lp.data_ptr() % 16:  # the kernels copy 16-byte-aligned windows of its rows
+        lp = lp.clone()
     tl, fl = _lengths(text_lengths, feats_lengths, t_text, t_feats)
     tl, fl = tl.to(torch.int32).contiguous(), fl.to(torch.int32).contiguous()
-    dec = torch.empty((b, t_feats, per_lane), dtype=torch.int32, device=device)
+    dec = torch.empty(decision_bytes(b, t_feats, per_lane), dtype=torch.uint8, device=device)
     return lp, tl, fl, per_lane, dec
 
 

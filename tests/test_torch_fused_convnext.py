@@ -13,6 +13,8 @@ with a card and without JAX the kernel test still collects:
 import numpy as np
 import pytest
 import torch
+from hypothesis import assume, given, settings
+from hypothesis import strategies as st
 
 from optispeech_tpu_torch.ops import fused_convnext as fc
 from torch_card import cuda  # noqa: F401  (fixture)
@@ -286,8 +288,12 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
         with pytest.raises(ValueError, match="packed"):
             fc.convnext_block_launch(x, *p[:4], packed, p[5], p[7], p[8])
         return
-    if case == "channels":  # wider than MAX_CHANNELS
+    if case == "channels":  # C = 576 (the wide path) passes; C = 0 does not
         x, p = _block_args(np.random.default_rng(0), 1, 9, 576, inter)
+        p[4], p[6] = p[4].bfloat16(), p[6].bfloat16()
+        fc._check_args(x, *p)
+        fc._check_packed(x, fc.kernel_weights(p[4], p[6]), p[5])
+        x, p = _block_args(np.random.default_rng(0), 1, 9, 0, inter)
         p[4], p[6] = p[4].bfloat16(), p[6].bfloat16()
     elif case == "inter":  # no intermediate channels
         x, p = _block_args(np.random.default_rng(0), 1, 9, c, 0)
@@ -369,3 +375,160 @@ def test_kernel_matches_twin_on_cuda_at_new_widths(cuda, dtype, c, inter, t):
     ref = fc.convnext_block_reference(x, *p)
     rtol = BF16_RTOL if dtype == torch.bfloat16 else 0.0
     torch.testing.assert_close(got.float(), ref.float(), atol=ATOL, rtol=rtol)
+
+
+# the largest C that JAX's rule tiles at T = 64 with I = 64: the wide path's
+# small-I extreme (chip_smoke.py phase 3)
+WIDEST_AT_I64 = max(c for c in range(12000, 12400) if fc.kernel_takes(64, c, 64))
+
+
+def test_widest_block_at_i64_is_the_wide_paths_extreme():
+    assert WIDEST_AT_I64 == 12272 and not fc.kernel_takes(64, WIDEST_AT_I64 + 1, 64)
+    assert WIDEST_AT_I64 <= fc.WIDE_MAX_CHANNELS
+
+
+@pytest.fixture(scope="module")
+def hypothesis_home(tmp_path_factory):
+    """Hypothesis's own files (its cache of the constants it reads from the
+    source) in a temporary directory, not in the checkout."""
+    from hypothesis import configuration
+
+    configuration.set_hypothesis_home_dir(tmp_path_factory.mktemp("hypothesis"))
+    yield
+    configuration.set_hypothesis_home_dir(None)
+
+
+@settings(max_examples=300, deadline=None, database=None)
+@given(data=st.data())
+def test_wrapper_takes_every_shape_the_rule_accepts(hypothesis_home, data):
+    """Wherever `kernel_takes(T, C, I)` holds, the wrapper's argument check
+    passes (on meta tensors: shapes, types and layout only), so a fused
+    model never meets a block the card refuses."""
+    tile = data.draw(st.sampled_from(fc.JAX_TILES))
+    t = tile * data.draw(st.integers(1, 4))
+    c = data.draw(st.integers(1, 16384))
+    inter = data.draw(st.integers(1, max(1, fc.JAX_VMEM_BYTES // (4 * c))))
+    assume(fc.kernel_takes(t, c, inter))
+    meta = dict(device="meta")
+    x = torch.empty(1, t, c, **meta)
+    params = [torch.empty(7, c, **meta), torch.empty(c, **meta), torch.empty(c, **meta),
+              torch.empty(c, **meta), torch.empty(c, inter, dtype=torch.bfloat16, **meta),
+              torch.empty(inter, **meta), torch.empty(inter, c, dtype=torch.bfloat16, **meta),
+              torch.empty(c, **meta), torch.empty(c, **meta)]
+    assert fc._check_args(x, *params) == (1, t, c, inter)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_twin_matches_jax_interpret_kernel_above_512_channels(dtype):
+    """C = 576 / I = 1152, one 64-frame tile: a width only the wide path
+    takes, against JAX's Pallas block in interpret mode."""
+    import jax.numpy as jnp
+
+    from optispeech_tpu.ops.pallas_convnext import convnext_block_fused as jax_block
+
+    x, params = _block_args(np.random.default_rng(576), 1, 64, 576, 1152, dtype)
+    xj = jnp.asarray(x.float().numpy()).astype(jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32)
+    expect = jax_block(xj, *[jnp.asarray(p.numpy()) for p in params], t_tile=64, interpret=True)
+    launches = fc.convnext_block_fused.launches
+    got = fc.convnext_block_fused(x, *params)  # CPU tensor: the twin
+    assert fc.convnext_block_fused.launches == launches
+    assert got.dtype == dtype and got.shape == x.shape
+    rtol = BF16_RTOL if dtype == torch.bfloat16 else 0.0
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(expect, np.float32), atol=ATOL,
+                               rtol=rtol)
+
+
+def test_fused_model_at_dim_576_matches_jax_fused_model(monkeypatch):
+    """The slice-1 model at `generator.dim: 576` (2 blocks, narrow I: the
+    decoder at 576/128), fused, synthesises as JAX's fused model does, whose
+    blocks run the Pallas kernel in interpret mode: durations equal, wav
+    within 1e-4, and every fused block of both took the kernel, the 576-wide
+    ones included."""
+    import dataclasses
+
+    import optispeech_tpu.ops.pallas_convnext as pc
+    from torch_parity import params_np, small_config, to_torch_config
+
+    from optispeech_tpu.models.optispeech import OptiSpeech as JaxOptiSpeech
+    from optispeech_tpu_torch.models.modules import convnext
+    from optispeech_tpu_torch.models.optispeech import OptiSpeech, with_fused_blocks
+
+    cfg = small_config(dim=576, inter=128, voc_dim=64, voc_inter=128, layers=2)
+    g = cfg.generator
+    g = dataclasses.replace(g, decoder=dataclasses.replace(g.decoder, fused_pallas=True),
+                            vocoder=dataclasses.replace(g.vocoder, fused_pallas=True))
+    cfg = dataclasses.replace(cfg, generator=g)
+    orig, calls = pc.convnext_block_fused, []
+
+    def interp(*args, **kw):
+        calls.append(args[0].shape[-1])
+        return orig(*args, interpret=True, **kw)
+
+    monkeypatch.setattr(pc, "convnext_block_fused", interp)
+    monkeypatch.setattr(pc, "fused_supported", lambda: True)
+    japi = JaxOptiSpeech(cfg, seed=0)
+    text = "The birch canoe slid on the smooth planks."
+    jout = japi.synthesise(japi.prepare_input(text, d_factor=2.0))
+    assert sorted(set(calls)) == [64, 576] and len(calls) == 4  # 2 decoder + 2 trunk blocks
+    tcfg = with_fused_blocks(to_torch_config(cfg))
+    tapi = OptiSpeech.load_from_jax_params(tcfg, params_np(japi.params), device="cpu")
+    port_calls, wrapper = [], convnext.convnext_block_fused
+    monkeypatch.setattr(convnext, "convnext_block_fused",
+                        lambda x, *a, **kw: port_calls.append(x.shape[-1]) or wrapper(x, *a, **kw))
+    tout = tapi.synthesise(tapi.prepare_input(text, d_factor=2.0))
+    assert sorted(port_calls) == sorted(calls)
+    np.testing.assert_array_equal(tout.durations, jout.durations)
+    np.testing.assert_array_equal(tout.wav_lengths, jout.wav_lengths)
+    np.testing.assert_allclose(tout.wav, jout.wav, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,inter,b,t", [
+    (576, 1152, 2, 1000), (576, 1152, 1, 1), (576, 1152, 3, 65), (768, 3072, 2, 1792),
+    (768, 3072, 1, 63), (1000, 200, 2, 128), (WIDEST_AT_I64, 64, 2, 64), (4096, 64, 1, 65),
+])
+def test_kernel_matches_twin_on_cuda_above_512_channels(cuda, dtype, c, inter, b, t):
+    """The wide path (csrc/convnext_block_wide.cu) at chip_smoke.py phase 3's
+    widths (C = 576 / I = 1152, 768 / 3072 and the small-I extreme), a C
+    that is no multiple of 64 or 256 and T either side of a tile, within
+    phase 3's tolerance of the twin."""
+    x, p = _block_args(np.random.default_rng(t + c), b, t, c, inter, dtype)
+    x = x.to(cuda)
+    p = [q.to(cuda) for q in p]
+    p[4], p[6] = p[4].bfloat16(), p[6].bfloat16()
+    launches = fc.convnext_block_fused.launches
+    got = fc.convnext_block_fused(x, *p)
+    torch.cuda.synchronize()
+    assert fc.convnext_block_fused.launches == launches + 1
+    ref = fc.convnext_block_reference(x, *p)
+    assert got.dtype == dtype and got.shape == x.shape
+    rtol = BF16_RTOL if dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(got.float(), ref.float(), atol=ATOL, rtol=rtol)
+
+
+@pytest.mark.parametrize("c,t", [(576, 65), (1000, 128), (WIDEST_AT_I64, 64)])
+def test_wide_layernorm_h_equals_the_twins_on_cuda(cuda, c, t):
+    """The wide path's first kernel writes bf16 h, read back from its
+    swizzled scratch image, equal element for element to the twin's
+    (`_dwconv_layernorm`, sums by halves), and zeros past C and past T."""
+    x, p = _block_args(np.random.default_rng(c), 2, t, c, 64)
+    x = x.to(cuda)
+    p = [q.to(cuda) for q in p]
+    p[4], p[6] = p[4].bfloat16(), p[6].bfloat16()
+    b, cp, tiles = 2, fc.padded_width(c), -(-t // 64)
+    h_img = torch.full((b * tiles * 64 * cp,), float("nan"), dtype=torch.bfloat16, device=cuda)
+    out = torch.empty_like(x)
+    packed = fc.kernel_weights(p[4], p[6])
+    dw, dwb, lnw, lnb, _, b1, _, b2, gamma = p
+    err = fc._library("convnext_block_wide").convnext_block_wide_launch(
+        *(q.data_ptr() for q in (x, out, dw, dwb, lnw, lnb, packed, b1, b2, gamma, h_img)),
+        b, t, c, 64, 0, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    r = torch.arange(64, device=cuda)[:, None]
+    ch = torch.arange(cp, device=cuda)[None, :]
+    off = (ch // 64) * 8192 + r * 128 + (ch % 64) * 2
+    off = off ^ (((off >> 7) & 7) << 4)  # the 128-byte swizzle
+    h = h_img.view(b, tiles, -1)[:, :, (off // 2).flatten()].view(b, tiles * 64, cp)
+    assert torch.equal(h[:, :t, :c], fc._dwconv_layernorm(x, *p[:4]).bfloat16())
+    assert not h[:, :t, c:].any() and not h[:, t:].any()

@@ -27,6 +27,9 @@ CASES = {
     "tl1": (4, 40, 24, [24, 7, 13, 1], [40, 17, 25, 3]),
     "odd": (2, 43, 23, [23, 9], [43, 29]),
     "short": (3, 20, 70, [70, 40, 5], [10, 1, 3]),
+    # tl = 1, fl = 1, tl = T and T_text no multiple of 32 (a lane's tokens
+    # cross no 32-token chunk: K = 2 tokens a lane at T = 45)
+    "edges": (4, 37, 45, [1, 45, 45, 17], [1, 37, 1, 30]),
 }
 
 
@@ -68,7 +71,7 @@ def test_twin_matches_jax_scan(case):
     _assert_same(_port(mas.viterbi_decode_reference, lp, tl, fl), _jax(jax_scan, lp, tl, fl))
 
 
-@pytest.mark.parametrize("case", ["tl1", "odd"])
+@pytest.mark.parametrize("case", ["tl1", "odd", "edges"])
 def test_twin_matches_jax_wavefront_kernel(case):
     from optispeech_tpu.ops.pallas_mas_wavefront import viterbi_decode_wavefront
 
@@ -101,9 +104,22 @@ def test_wrapper_runs_the_twin_on_the_cpu():
     _assert_same(got, _port(mas.viterbi_decode_reference, lp, tl, fl))
 
 
-@pytest.mark.parametrize("t_text,per_lane", [(1, 1), (32, 1), (33, 2), (192, 8), (2048, 64)])
+@pytest.mark.parametrize("t_text,per_lane", [(1, 1), (32, 1), (33, 2), (192, 6), (2048, 64),
+                                             (384, 12), (500, 16), (513, 20), (1500, 48)])
 def test_tokens_per_lane(t_text, per_lane):
+    """Contiguous tokens a lane holds: ceil(T / 32), or the next
+    instantiated width above 16."""
     assert mas.tokens_per_lane(t_text) == per_lane
+
+
+@pytest.mark.parametrize("b,t_feats,per_lane,expect", [
+    (1, 768, 6, 154 * 32 * 4),  # 5 frames to a 32-bit word
+    (128, 768, 1, 128 * 24 * 32 * 4),  # 32 frames to a word
+    (2, 43, 12, 2 * 22 * 32 * 4),  # 2 frames to a word, the last row half full
+    (3, 10, 48, 3 * 10 * 32 * 8),  # one frame to a 64-bit word
+])
+def test_decision_bytes(b, t_feats, per_lane, expect):
+    assert mas.decision_bytes(b, t_feats, per_lane) == expect
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
@@ -139,3 +155,28 @@ def test_kernel_matches_twin_on_cuda(cuda, shape):
     assert torch.equal(ds, ds_ref)
     torch.testing.assert_close(bl, bl_ref, rtol=1e-5, atol=0)
     torch.testing.assert_close(grad, grad_ref, atol=1e-6, rtol=0)
+
+
+def _card_case(b, t_feats, t_text, device, seed):
+    rng = np.random.default_rng(seed)
+    lp = np.log(rng.dirichlet(np.ones(t_text), size=(b, t_feats)) + 1e-8).astype(np.float32)
+    tl = rng.integers(max(1, t_text // 2), t_text + 1, b)
+    fl = rng.integers(max(1, t_feats // 2), t_feats + 1, b)
+    tl[0] = t_text  # tl = T
+    fl[-1] = 1  # one frame
+    if b > 2:
+        tl[1], fl[1] = 1, t_feats  # one token, every frame
+    return [torch.from_numpy(np.asarray(a)).to(device) for a in (lp, tl, fl)]
+
+
+@pytest.mark.parametrize("b", [1, 128, 133])
+@pytest.mark.parametrize("t_text", [1, 31, 33, 192, 384])
+def test_kernel_matches_twin_on_cuda_by_text_width(cuda, b, t_text):
+    """B3 exactly equal to its twin at every tokens-per-lane shape the
+    training path meets (1, 2, 6, 12 tokens a lane), B above the SMs."""
+    lp, tl, fl = _card_case(b, 300, t_text, cuda, seed=b + t_text)
+    launches = mas.viterbi_decode.launches
+    ds = mas.mas_durations(lp, tl, fl)
+    torch.cuda.synchronize()
+    assert mas.viterbi_decode.launches == launches + 1
+    assert torch.equal(ds, mas.viterbi_decode_reference(lp, tl, fl)[0])

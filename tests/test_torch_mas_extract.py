@@ -32,6 +32,8 @@ CASES = {
     "frames43": (2, 43, 12, [12, 7], [43, 29]),
     "one_token": (3, 20, 9, [1, 9, 4], [3, 20, 1]),
     "short": (3, 20, 70, [70, 40, 5], [10, 1, 3]),
+    # tl = 1, fl = 1, tl = T and T_text no multiple of 32
+    "edges": (4, 37, 45, [1, 45, 45, 17], [1, 37, 1, 30]),
 }
 
 
@@ -159,3 +161,41 @@ def test_kernel_durations_equal_the_wavefront_kernel_on_cuda(cuda):
     lp, tl, fl = _card_inputs((128, 768, 192), cuda)
     ds = mas.viterbi_decode_extract(lp, tl, fl)[0]
     assert torch.equal(ds, mas.mas_durations(lp, tl, fl))
+
+
+@pytest.mark.parametrize("b", [1, 128, 133])
+@pytest.mark.parametrize("t_text", [1, 31, 33, 192, 384])
+def test_kernel_matches_twin_on_cuda_by_text_width(cuda, b, t_text):
+    """B4 exactly equal to its twin, binsum bit for bit, and its durations
+    equal to B3's, at every tokens-per-lane shape the training path meets."""
+    from test_torch_mas import _card_case
+
+    lp, tl, fl = _card_case(b, 300, t_text, cuda, seed=b * t_text)
+    ds, binsum = mas.mas_extract(lp, tl, fl)
+    wavefront = mas.mas_durations(lp, tl, fl)
+    torch.cuda.synchronize()
+    ds_ref, binsum_ref = mas.extract_reference(lp, tl, fl)
+    assert torch.equal(ds, ds_ref)
+    assert torch.equal(binsum, binsum_ref)
+    assert torch.equal(ds, wavefront)
+
+
+@pytest.mark.parametrize("shape", [(2, 37, 45), (1, 50, 33), (3, 20, 1), (2, 64, 10)])
+def test_kernels_read_the_tensors_last_rows_on_cuda(cuda, shape):
+    """The last item with every frame and token valid and T no multiple of
+    4: the stage that holds lp's last row, whose window rounded to 16 bytes
+    would pass the tensor's end, is read from device memory, and both
+    kernels still equal their twins."""
+    b, t_feats, t_text = shape
+    rng = np.random.default_rng(sum(shape))
+    lp = np.log(rng.dirichlet(np.ones(t_text), size=(b, t_feats)) + 1e-8).astype(np.float32)
+    tl = rng.integers(1, t_text + 1, b)
+    fl = rng.integers(1, t_feats + 1, b)
+    tl[-1], fl[-1] = t_text, t_feats
+    lp, tl, fl = (torch.from_numpy(np.asarray(a)).to(cuda) for a in (lp, tl, fl))
+    ds, binsum = mas.mas_extract(lp, tl, fl)
+    wavefront = mas.mas_durations(lp, tl, fl)
+    torch.cuda.synchronize()
+    ds_ref, binsum_ref = mas.extract_reference(lp, tl, fl)
+    assert torch.equal(ds, ds_ref) and torch.equal(wavefront, ds_ref)
+    assert torch.equal(binsum, binsum_ref)
