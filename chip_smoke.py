@@ -9,21 +9,26 @@ Phases, each of which fails the run on any error:
      scripts/mas_chain.cu) into build/, each build's own seconds; for each
      instantiation of the two fused ConvNeXt-block kernels (B1 and B2), its
      registers, spills, shared memory, weight slots and whether ptxas
-     serialized its wgmma (ptxas's log and the kernel's own layout), and
-     ptxas's registers and spills for the other kernels;
+     serialized its wgmma (ptxas's log and the kernel's own layout), the
+     same for each kernel of B1's wide path, and ptxas's registers and
+     spills for the other kernels;
   3. kernel check: the fused ConvNeXt-block kernel against its plain twin at
      both model widths and at C = 128 / I = 512, B = 32, T = 1792 / 1000
      (ragged) / 65 (one frame past a tile) / 5 (shorter than the halo) / 1, x
      in float32 and bfloat16, and at the other widths it takes (C = 64, 192,
-     320, 448, 512, and C = 96, 97 and 500, which it pads to a multiple of
-     64) at T = 1792 / 65 / 1, and B1's wide path (C > 512) at C = 576 /
-     I = 1152 and 768 / 3072 (T = 1792 / 65 / 1) and at the widest block
-     JAX's rule tiles at T = 64, I = 64 (C = 12272); then its time (on
-     weights packed once, and through the wrapper that packs them on every
-     call) beside its bound, the twin's time and the unfused PyTorch
-     block's (`library_ms`, a yardstick only), x in float32 at both widths
-     and in bfloat16 at the trunk, x in float32 and bfloat16 at C = 448 and
-     512, and x in float32 at the three wide-path widths;
+     320, 448, 512, C = 512 with I = 3072, and C = 96, 97 and 500, which it
+     pads to a multiple of 64) at T = 1792 / 65 / 1, and B1's wide path
+     (C > 512) at C = 576 / I = 1152 and 768 / 3072 (T = 1792 / 65 / 1) and
+     at the widest block JAX's rule tiles at T = 64, I = 64 (C = 12272);
+     then its time (on weights packed once, and through the wrapper that
+     packs them on every call) beside its bound, the twin's time and the
+     unfused PyTorch block's (`library_ms`, a yardstick only), x in float32
+     at both widths and in bfloat16 at the trunk, x in float32 and bfloat16
+     at C = 448 and 512, and x in float32 at the three wide-path widths,
+     there with each of its kernels' device time (torch.profiler); and the
+     wide path launched at the model widths and at C = 448 and 512 (x
+     float32), timed beside the narrow kernel on the same inputs (recorded
+     only: the wrapper takes it above C = 512 alone);
   4. main path at full width: the flagship ConvNeXt + WaveNeXt model (random
      weights, seed 0, en-g2p text front end, fused decoder and trunk) runs
      prepare_input -> synthesise on an English sentence, then
@@ -137,14 +142,17 @@ CHECK_WIDTHS = {**WIDTHS, "narrow": (128, 512)}  # phase 3 also checks C = 128
 # no multiple of 64, which B1 pads to the next (C' = 128, 128, 512): C = 96,
 # C = 97 with an odd I (rows that are not 16-byte aligned) and C = 500
 NEW_WIDTHS = {"c64": (64, 256), "c192": (192, 1024), "c320": (320, 1280), "c448": (448, 1792),
-              "c512": (512, 2048), "c96": (96, 384), "c97": (97, 291), "c500": (500, 1000)}
+              "c512": (512, 2048), "c96": (96, 384), "c97": (97, 291), "c500": (500, 1000),
+              "c512_i3072": (512, 3072)}  # the longest second product the rule fuses at C = 512
 # phase 3: widths above 512, which B1's wide path (csrc/convnext_block_wide.cu)
 # takes, at T = 1792 / 65 / 1, and the small-I extreme, the widest block that
 # JAX's rule tiles at T = 64 with I = 64 (C = 12272), at T = 64
 WIDE_WIDTHS = {"c576": (576, 1152), "c768": (768, 3072)}
 WIDEST_I64 = (12272, 64)
 # phase 3 times these beside the model widths: the two widest of the narrow
-# kernel, whose prologue takes two frames at a time, and the wide path's
+# kernel, whose prologue takes two frames at a time, and the wide path's;
+# at the model widths and these two it also times the wide path launched
+# on the same inputs (recorded only: above MAX_CHANNELS alone it runs)
 TIMED_WIDTHS = {"c448": NEW_WIDTHS["c448"], "c512": NEW_WIDTHS["c512"]}
 DIM_WIDE = 576  # phase 4: a model at this generator.dim, its decoder at 576/1024
 # B2's times in its previous (mma.sync) design, same card type (PERF.md, kernel
@@ -180,6 +188,29 @@ def time_ms(fn, iters, repeats=5):
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+def kernel_split_ms(fn, calls=10) -> dict:
+    """Device ms per call of each kernel that `fn` launches, by the kernel's
+    name and template arguments (its parameters dropped), from
+    torch.profiler over `calls` calls after one warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.device_time_total <= 0:
+            continue
+        name = e.key.removeprefix("void ").replace("(anonymous namespace)::", "").split("(")[0]
+        split[name] = split.get(name, 0.0) + e.device_time_total / calls / 1e3
+    if not split:
+        raise AssertionError("the profiler recorded no device time")
+    return split
 
 
 def block_inputs(gen, b, t, c, inter, dtype, device, weight_dtype=torch.bfloat16):
@@ -256,8 +287,8 @@ def time_kernel(fc, device):
         packed = fc.kernel_weights(w1, w2)
         lib_args = (x, (dw.t().contiguous()[:, None, :], dwb), lnw, lnb, w1.t().contiguous(),
                     b1, w2.t().contiguous(), b2, gamma)
-        ms = time_ms(lambda: fc.convnext_block_launch(x, dw, dwb, lnw, lnb, packed, b1, b2, gamma),
-                     iters=20)
+        launch = lambda: fc.convnext_block_launch(x, dw, dwb, lnw, lnb, packed, b1, b2, gamma)  # noqa: E731
+        ms = time_ms(launch, iters=20)
         wrapper_ms = time_ms(lambda: fc.convnext_block_fused(x, *p), iters=20)
         plain_ms = time_ms(lambda: fc.convnext_block_reference(x, *p), iters=3)
         library_ms = time_ms(lambda: library_block(*lib_args), iters=10)
@@ -278,7 +309,35 @@ def time_kernel(fc, device):
               f"call, {wrapper_ms:.4f} ms)  bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
               f"{flops:.3e} FLOP, {nbytes / 1e6:.1f} MB)  twin {plain_ms:.4f} ms  library "
               f"{library_ms:.4f} ms  -> {r['bound_ms'] / ms:.1%} of bound", flush=True)
+        if r["path"] == "narrow" and dtype == torch.float32:  # the wide path at this width
+            wide = lambda: fc.convnext_block_wide_launch(x, dw, dwb, lnw, lnb, packed, b1, b2, gamma)  # noqa: E731
+            got, ref = wide(), launch()
+            r["wide_max_abs_diff_to_narrow"] = float((got - ref).abs().max())
+            r["wide_ms"] = time_ms(wide, iters=20)
+            r["wide_kernels_ms"] = wide_split(kernel_split_ms(wide))
+            print(f"  {'':10s} the wide path at this width: {r['wide_ms']:.4f} ms "
+                  f"({split_text(r['wide_kernels_ms'])}), max|wide - narrow| "
+                  f"{r['wide_max_abs_diff_to_narrow']:.3e}", flush=True)
+        elif r["path"] == "wide":
+            r["kernels_ms"] = wide_split(kernel_split_ms(launch))
+            print(f"  {'':10s} by kernel: {split_text(r['kernels_ms'])}", flush=True)
     return rows
+
+
+# B1's wide path: its kernels (csrc/convnext_block_wide.cu) by what they compute
+WIDE_KERNELS = {"wide_layernorm_kernel": "layernorm", "wide_gemm_kernel<0,": "product1",
+                "wide_gemm_kernel<1,": "product1_split", "wide_split_gelu_kernel": "split_sum_gelu",
+                "wide_gemm_kernel<2,": "product2"}
+
+
+def wide_split(split: dict) -> dict:
+    """`kernel_split_ms` of the wide path, keyed by WIDE_KERNELS' names."""
+    return {next((v for k, v in WIDE_KERNELS.items() if name.startswith(k)), name): ms
+            for name, ms in split.items()}
+
+
+def split_text(split: dict) -> str:
+    return ", ".join(f"{name} {ms:.4f} ms" for name, ms in split.items())
 
 
 def ptxas_summary(log: str) -> list:
@@ -324,6 +383,31 @@ def fused_ptxas(info, label, channels, layout):
               f"{entry['wgmma_serialized']}", flush=True)
     if not found and info["seconds"] > 0:
         raise AssertionError(f"no ptxas report for {label}")
+    return found
+
+
+def wide_ptxas(info, fc) -> list:
+    """Print and return ptxas's report for each kernel of B1's wide path, with
+    its dynamic shared memory at C = 768 (the LayerNorm's depends on C);
+    fail if the library was built and has no report."""
+    found = ptxas_summary(info["log"])
+    lib = fc._library("convnext_block_wide")
+    for entry in found:
+        kernel = 0 if "layernorm" in entry["function"] else 1
+        entry["smem_bytes_at_c768"] = (lib.convnext_block_wide_smem_bytes(kernel, 768)
+                                       if "split" not in entry["function"] else 0)
+        fn = entry["function"]
+        name = next(k for k in ("layernorm", "gemm", "split_gelu") if k in fn)
+        if name == "gemm":
+            name += {"ILi0E": " product 1 -> u", "ILi1E": " product 1, split",
+                     "ILi2E": " product 2"}[re.search(r"ILi[0-2]E", fn).group()]
+        name += ", x bfloat16" if "bfloat16" in fn else ""
+        print(f"    B1 wide {name}: {entry['registers']} registers, spills "
+              f"{entry['spill_store_bytes']} B stored / {entry['spill_load_bytes']} B loaded, shared "
+              f"memory {entry['smem_bytes_at_c768']} B dynamic at C = 768; wgmma serialized by "
+              f"ptxas {entry['wgmma_serialized']}", flush=True)
+    if not found and info["seconds"] > 0:
+        raise AssertionError("no ptxas report for the wide path")
     return found
 
 
@@ -1145,7 +1229,7 @@ def main() -> int:
              "convnext_block_int8": ("B2", fc.INT8_CHANNELS, fc.kernel_layout_int8)}
     for name, info in built.items():
         print(f"  {name}: {info['path']} built in {info['seconds']:.1f} s")
-        if name in fused:
+        if name in fused or name == "convnext_block_wide":  # reported below, kernel by kernel
             continue
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
@@ -1153,6 +1237,7 @@ def main() -> int:
     build_s = time.perf_counter() - t_build
     print(f"  all kernels built in {build_s:.1f} s (in parallel)")
     ptxas = {name: fused_ptxas(built[name], *spec) for name, spec in fused.items()}
+    ptxas["convnext_block_wide"] = wide_ptxas(built["convnext_block_wide"], fc)
 
     phase("3. kernel check (kernel against twin on the card)")
     max_abs_err = check_kernel(fc, device)
@@ -1229,8 +1314,11 @@ def main() -> int:
         "max_abs_err": max_abs_err["wide"],
         "ms": wide["ms"], "plain_ms": wide["plain_ms"], "bound_ms": wide["bound_ms"],
         "bound_by": wide["bound_by"], "library_ms": wide["library_ms"],
-        "wrapper_ms": wide["wrapper_ms"], "shape": wide["shape"],
+        "wrapper_ms": wide["wrapper_ms"], "shape": wide["shape"], "kernels_ms": wide["kernels_ms"],
         "other_shapes": [r for w, r in rows.items() if w != "c768" and r["path"] == "wide"],
+        "at_narrow_widths": {w: {k: r[k] for k in ("shape", "ms", "wide_ms", "wide_kernels_ms")}
+                             for w, r in rows.items() if "wide_ms" in r},
+        "ptxas": ptxas["convnext_block_wide"],
     }
     mas_kernel = {
         "name": "viterbi_decode", "route": "cuda",

@@ -118,6 +118,7 @@ struct Layout {
   static_assert(BYTES <= SMEM_LIMIT, "a block may use at most 227 KB of shared memory");
   static_assert(SLOT % 1024 == 0 && H_BYTES % 1024 == 0, "swizzle atoms are 1024 bytes");
   static_assert(TM == IC, "h and the W1 image share the 64-row K-block stride");
+  static_assert(CONSUMER_WARPS * C * 4 <= 2 * G_BYTES, "the prologue's sums fit in the G buffers");
 };
 
 __device__ __forceinline__ void consumers_sync() { named_sync<CONSUMERS * 128>(); }
@@ -150,12 +151,6 @@ __device__ __forceinline__ float4 load4_row(const T* row, int c, int c_len) {
   }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
 // 0.5 u (1 + erf(u / sqrt 2)) with the Abramowitz-Stegun erf in the JAX
 // kernel's order of operations (`_erf`): sign(x) (1 - poly(t) exp(-x^2)),
 // t = 1 / (1 + p |x|) rounded once. exp is the hardware's exp2 of x log2 e
@@ -172,15 +167,61 @@ __device__ __forceinline__ float gelu(float u) {
   return 0.5f * u * (1.f + erf);
 }
 
+// The sum by halves (the twin's `_tree_sum`) of the C values (C a multiple
+// of 64, at most 512) that a warp holds as lane l's w[4 j + e] = value
+// 4 (l + 32 j) + e. While more than 32 are left, N is a multiple of 8, so
+// value i + N/2 sits in the same slot e of lane (l + N/8) % 32, N/256 or
+// N/256 + 1 groups on (one shuffle for each; none where N/8 is a multiple
+// of 32): each level is shuffles and adds in registers. The last 32 or
+// fewer go one to a lane (`warp_tail_sum`). w is overwritten; returns the
+// sum to every lane.
+template <int C, int N = C>
+__device__ __forceinline__ float tree_sum_regs(float (&w)[4 * ((C + 127) / 128)], int lane) {
+  constexpr int GROUPS = (C + 127) / 128;
+  if constexpr (N > 32) {
+    static_assert(N % 8 == 0, "above 32 values every level halves a multiple of 8");
+    constexpr int HALF = N / 2, H4 = HALF / 4, G4 = H4 / 32, R4 = H4 % 32;
+    const int src = (lane + R4) & 31;
+    const bool wrap = lane + R4 >= 32;
+#pragma unroll
+    for (int j = 0; j < GROUPS; ++j) {
+      if (128 * j >= HALF) break;  // the group holds no value below HALF
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float a = 0.f, b = 0.f;
+        if (j + G4 < GROUPS)
+          a = R4 ? __shfl_sync(0xffffffffu, w[4 * (j + G4) + e], src) : w[4 * (j + G4) + e];
+        if (R4 && j + G4 + 1 < GROUPS) b = __shfl_sync(0xffffffffu, w[4 * (j + G4 + 1) + e], src);
+        if (128 * j + 4 * lane + e < HALF) w[4 * j + e] = __fadd_rn(w[4 * j + e], wrap ? b : a);
+      }
+    }
+    return tree_sum_regs<C, HALF>(w, lane);
+  } else {  // value i at lane i / 4, slot i % 4: one to a lane
+    const int src = lane / 4;
+    const float s0 = __shfl_sync(0xffffffffu, w[0], src), s1 = __shfl_sync(0xffffffffu, w[1], src);
+    const float s2 = __shfl_sync(0xffffffffu, w[2], src), s3 = __shfl_sync(0xffffffffu, w[3], src);
+    const int e = lane % 4;
+    const float s = lane >= N ? 0.f : e == 0 ? s0 : e == 1 ? s1 : e == 2 ? s2 : s3;
+    return warp_tail_sum(s, N, lane);
+  }
+}
+
 // Depthwise conv + LayerNorm of frames r0 .. r0 + F - 1 by one warp, written
 // as bf16 into the swizzled h tile of C' = C columns; frames at or past T
 // are zeros. Lane l holds channels 4 (l + 32 j) .. 4 (l + 32 j) + 3 and
-// slides an (F + 6)-frame window over them. Channels at or past the real
-// width c_len (past C' where C' is not a multiple of 128, past c_len where
-// PADDED) hold zeros and are left out of the variance; h is zero there.
+// slides an (F + 6)-frame window over them. The arithmetic is the twin's
+// (ops/fused_convnext.py::_dwconv_layernorm), so that h equals its h bit
+// for bit: round-to-nearest intrinsics in its order (no fused multiply-add),
+// the mean and the variance summed by halves over the real width (in
+// registers, `tree_sum_regs`; where PADDED, over c_len by `warp_tree_sum`
+// through the warp's `sums`, C' floats of shared memory), 1/std a division
+// by a rounded square root. An h on the other side of a bf16 rounding from
+// the twin's moves a whole row of u, and the block's output by up to ~3e-3
+// at C = 512 / I = 3072 (PERF.md, PR 9). Channels at or past c_len hold
+// zeros; h is zero there.
 template <int C, bool PADDED, typename T>
 __device__ __forceinline__ void dwconv_layernorm(const T* __restrict__ xb, unsigned char* h_s,
-                                                 const float* __restrict__ dw,
+                                                 float* sums, const float* __restrict__ dw,
                                                  const float* __restrict__ dwb,
                                                  const float* __restrict__ lnw,
                                                  const float* __restrict__ lnb, int t0, int t_len,
@@ -208,47 +249,63 @@ __device__ __forceinline__ void dwconv_layernorm(const T* __restrict__ xb, unsig
       wk[k] = on ? load4_row<PADDED>(dw + k * cl, c, cl) : make_float4(0.f, 0.f, 0.f, 0.f);
     const float4 bias = on ? load4_row<PADDED>(dwb, c, cl) : make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-    for (int f = 0; f < F; ++f) {
+    for (int f = 0; f < F; ++f) {  // taps outside [0, T) add the twin's 0 * dw = 0
       float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
       for (int k = 0; k < 7; ++k) {
-        acc.x += win[f + k].x * wk[k].x;
-        acc.y += win[f + k].y * wk[k].y;
-        acc.z += win[f + k].z * wk[k].z;
-        acc.w += win[f + k].w * wk[k].w;
+        acc.x = __fadd_rn(acc.x, __fmul_rn(win[f + k].x, wk[k].x));
+        acc.y = __fadd_rn(acc.y, __fmul_rn(win[f + k].y, wk[k].y));
+        acc.z = __fadd_rn(acc.z, __fmul_rn(win[f + k].z, wk[k].z));
+        acc.w = __fadd_rn(acc.w, __fmul_rn(win[f + k].w, wk[k].w));
       }
-      v[f][4 * j] = acc.x + bias.x;
-      v[f][4 * j + 1] = acc.y + bias.y;
-      v[f][4 * j + 2] = acc.z + bias.z;
-      v[f][4 * j + 3] = acc.w + bias.w;
+      v[f][4 * j] = __fadd_rn(acc.x, bias.x);
+      v[f][4 * j + 1] = __fadd_rn(acc.y, bias.y);
+      v[f][4 * j + 2] = __fadd_rn(acc.z, bias.z);
+      v[f][4 * j + 3] = __fadd_rn(acc.w, bias.w);
     }
   }
+  // the sum by halves of this lane's values of frame f, or of their
+  // centred squares, over the real width
+  auto tree = [&](int f, bool square, float mean) {
+    float w[4 * GROUPS];
+#pragma unroll
+    for (int i = 0; i < 4 * GROUPS; ++i) {
+      const float d = square ? __fsub_rn(v[f][i], mean) : v[f][i];
+      w[i] = square ? __fmul_rn(d, d) : d;
+    }
+    if constexpr (!PADDED) {
+      return tree_sum_regs<C>(w, lane);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4 * GROUPS; ++i) {
+        const int c = 4 * (lane + 32 * (i / 4)) + i % 4;
+        if (c < cl) sums[c] = w[i];
+      }
+      __syncwarp();
+      const float total = warp_tree_sum([&](int i) { return sums[i]; }, sums, cl, lane);
+      __syncwarp();  // every lane has read `sums` before it is written again
+      return total;
+    }
+  };
+  const float n = static_cast<float>(cl);
 #pragma unroll
   for (int f = 0; f < F; ++f) {
     const int r = r0 + f;
     const bool live = t0 + r < t_len;
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < 4 * GROUPS; ++i) sum += v[f][i];
-    const float inv_c = PADDED ? 1.f / c_len : 1.f / C;
-    const float mean = warp_sum(sum) * inv_c;
-    float sq = 0.f;
-#pragma unroll
-    for (int i = 0; i < 4 * GROUPS; ++i) {
-      const float d = v[f][i] - mean;
-      if (!RAGGED || 4 * (lane + 32 * (i / 4)) + i % 4 < cl) sq += d * d;
-    }
-    const float rstd = rsqrtf(warp_sum(sq) * inv_c + 1e-6f);
+    const float mean = __fdiv_rn(tree(f, false, 0.f), n);
+    const float var = __fdiv_rn(tree(f, true, mean), n);
+    const float rstd = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, 1e-6f)));
 #pragma unroll
     for (int j = 0; j < GROUPS; ++j) {
       const int c = 4 * (lane + 32 * j);
       if (C % 128 != 0 && c >= C) continue;  // past the tile; zeros from lnw = lnb = 0 below C
       const float4 g = load4_row<PADDED>(lnw, c, cl), bb = load4_row<PADDED>(lnb, c, cl);
-      float hv[4] = {(v[f][4 * j] - mean) * rstd * g.x + bb.x,
-                     (v[f][4 * j + 1] - mean) * rstd * g.y + bb.y,
-                     (v[f][4 * j + 2] - mean) * rstd * g.z + bb.z,
-                     (v[f][4 * j + 3] - mean) * rstd * g.w + bb.w};
-      if (!live) hv[0] = hv[1] = hv[2] = hv[3] = 0.f;
+      const float gs[4] = {g.x, g.y, g.z, g.w}, bs[4] = {bb.x, bb.y, bb.z, bb.w};
+      float hv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        hv[e] = live ? __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[f][4 * j + e], mean), rstd), gs[e]), bs[e])
+                     : 0.f;
       const __nv_bfloat162 lo = __floats2bfloat162_rn(hv[0], hv[1]);
       const __nv_bfloat162 hi = __floats2bfloat162_rn(hv[2], hv[3]);
       uint2 packed;
@@ -322,8 +379,10 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out, const float*
 #pragma unroll
   for (int r0 = warp * FRAMES_PER_WARP; r0 < (warp + 1) * FRAMES_PER_WARP;
        r0 += PROLOGUE_FRAMES<C, PADDED>)
-    dwconv_layernorm<C, PADDED, T>(xb, smem + L::H_OFF, dw, dwb, lnw, lnb, t0, t_len, c_len, r0,
-                                   lane);
+    dwconv_layernorm<C, PADDED, T>(xb, smem + L::H_OFF,
+                                   reinterpret_cast<float*>(smem + L::G_OFF) + warp * C, dw, dwb,
+                                   lnw, lnb, t0, t_len, c_len, r0, lane);
+  consumers_sync();  // every warp's LayerNorm sums (in the G buffers) are done
   // G_{-1} = 0: the first pass's second product adds nothing, so every pass
   // of the loop issues, commits and waits alike (branches between the wgmma
   // groups make ptxas serialize them, its warning C7514)

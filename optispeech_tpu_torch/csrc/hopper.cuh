@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the fused ConvNeXt-block kernels
-// (convnext_block.cu, B1, and convnext_block_int8.cu, B2): the 128-byte
+// (convnext_block.cu and convnext_block_wide.cu, B1, and
+// convnext_block_int8.cu, B2): the 128-byte
 // swizzle and the wgmma shared-memory descriptor that reads it, mbarriers,
-// the bulk copy that fills a weight slot, and wgmma in the two forms the
+// the bulk copy that fills a weight slot, wgmma in the two forms the
 // kernels use (bf16 -> f32 and s8 -> s32, both operands K-major in shared
-// memory).
+// memory), and a warp's sum by halves in the twin's order (B1's LayerNorms).
 //
 // Operand tiles are K-major with 128-byte rows (64 bf16 or 128 int8 of K)
 // in blocks of 8 rows (1024 bytes, the swizzle atom); a k step is 32 bytes
@@ -340,6 +341,46 @@ __device__ __forceinline__ void wgmma_m64n192k32_s8(int (&d)[96], uint64_t a, ui
         "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
         "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95])
       : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// The sum by halves of n <= 32 values, value i in lane i's s (the twin's
+// `_tree_sum`: s_i + s_{i + n/2} for i < n/2, the odd last carried), by
+// shuffles. Returns the sum to every lane.
+__device__ __forceinline__ float warp_tail_sum(float s, int n, int lane) {
+  while (n > 1) {
+    const int half = n / 2;
+    const float hi = __shfl_sync(0xffffffffu, s, (lane + half) & 31);
+    const float last = __shfl_sync(0xffffffffu, s, n - 1);
+    if (lane < half) s = __fadd_rn(s, hi);
+    else if (lane == half) s = last;  // the carry where n is odd; past the level otherwise
+    n = half + n % 2;
+  }
+  return __shfl_sync(0xffffffffu, s, 0);
+}
+
+// The sum of value(0 .. n) by halves, the twin's `_tree_sum`: value(i) +
+// value(i + n/2) for i < n/2, the odd last element carried, until one is
+// left. By one warp: the levels above 32 elements in `buf` (n / 2 + 1
+// floats), in place, the rest in registers by shuffles. Returns the sum to
+// every lane. value may read buf itself (where block_level began the sum):
+// in place is safe, as a level writes below n/2 and reads at or above it,
+// except lane 0's carry into buf[n/2], which only lane 0 reads, first.
+template <typename F>
+__device__ __forceinline__ float warp_tree_sum(F value, float* buf, int n, int lane) {
+  if (n == 1) return value(0);
+  int half = n / 2;
+  for (int i = lane; i < half; i += 32) buf[i] = __fadd_rn(value(i), value(i + half));
+  if (n % 2 && lane == 0) buf[half] = value(n - 1);
+  n = half + n % 2;
+  __syncwarp();
+  while (n > 32) {
+    half = n / 2;
+    for (int i = lane; i < half; i += 32) buf[i] = __fadd_rn(buf[i], buf[i + half]);
+    if (n % 2 && lane == 0) buf[half] = buf[n - 1];
+    n = half + n % 2;
+    __syncwarp();
+  }
+  return warp_tail_sum(lane < n ? buf[lane] : 0.f, n, lane);
 }
 
 template <int N>

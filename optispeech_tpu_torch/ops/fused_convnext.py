@@ -101,9 +101,8 @@ def _dwconv_layernorm(x, dw, dwb, lnw, lnb):
 
 def convnext_block_reference(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma):
     """Plain PyTorch twin of the kernel, same contract and arithmetic; its
-    dwconv and LayerNorm are `_dwconv_layernorm`'s, which the wide path
-    repeats bit for bit (convnext_block.cu's own LayerNorm sums by warp
-    shuffles, within an ulp of it)."""
+    dwconv and LayerNorm are `_dwconv_layernorm`'s, which both of B1's
+    kernels repeat bit for bit."""
     xf = x.float()
     h = _dwconv_layernorm(x, dw, dwb, lnw, lnb)
     h1 = gelu_erf(_bf16_matmul(h, w1) + b1.float())
@@ -228,29 +227,125 @@ def _check_packed(x, packed, b1):
 def convnext_block_launch(x, dw, dwb, lnw, lnb, packed, b1, b2, gamma):
     """Launch B1 on weights from `kernel_weights`; the caller has checked x
     and the float32 parameters (the wrapper does). Above MAX_CHANNELS it
-    launches the wide path, on the same pack, with a bf16 scratch for h."""
+    launches the wide path (`convnext_block_wide_launch`) on the same pack."""
+    if x.shape[-1] > MAX_CHANNELS:
+        return convnext_block_wide_launch(x, dw, dwb, lnw, lnb, packed, b1, b2, gamma)
     _check_packed(x, packed, b1)
     if x.device.type != "cuda":
         raise ValueError(f"convnext_block_launch: no kernel for device {x.device}")
     b, t, c = x.shape
     out = torch.empty_like(x)
-    args = [x.data_ptr(), out.data_ptr(), dw.data_ptr(), dwb.data_ptr(), lnw.data_ptr(),
-            lnb.data_ptr(), packed.data_ptr(), b1.data_ptr(), b2.data_ptr(), gamma.data_ptr()]
-    if c <= MAX_CHANNELS:
-        lib, fn = _library(), "convnext_block_fused_launch"
-    else:
-        lib, fn = _library("convnext_block_wide"), "convnext_block_wide_launch"
-        h_img = torch.empty(b * -(-t // I_CHUNK) * I_CHUNK * padded_width(c), dtype=torch.bfloat16,
-                            device=x.device)
-        args.append(h_img.data_ptr())
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = getattr(lib, fn)(*args, b, t, c, b1.shape[0], int(x.dtype == torch.bfloat16), stream)
+        err = _library().convnext_block_fused_launch(
+            x.data_ptr(), out.data_ptr(), dw.data_ptr(), dwb.data_ptr(), lnw.data_ptr(),
+            lnb.data_ptr(), packed.data_ptr(), b1.data_ptr(), b2.data_ptr(), gamma.data_ptr(),
+            b, t, c, b1.shape[0], int(x.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"convnext_block_fused: kernel launch failed with cudaError {err}")
     convnext_block_fused.launches += 1
-    if c > MAX_CHANNELS:
-        convnext_block_fused.wide_launches += 1
+    return out
+
+
+# -- B1's wide path (csrc/convnext_block_wide.cu) --------------------------------
+
+IMAGE_TILE = 64  # an image tile of h or u: 64 frames x 64 channels of bf16, 128-byte rows (8 KB)
+WIDE_TILE_COLS = 128  # output columns of a product tile (its rows: two row tiles)
+WIDE_MIN_SPLIT_BLOCKS = 4  # K blocks that a split of product 1 takes at least
+H100_SMS = 132  # streaming multiprocessors of an H100 SXM
+
+
+def wide_plan(batch: int, frames: int, channels: int, inter: int, sms: int = H100_SMS) -> dict:
+    """How the wide path cuts one call, decided on the host from the shape.
+
+    The LayerNorm kernel writes h into an image of `row_tiles` 64-frame row
+    tiles (B x ceil(T / 64)), C' / 64 tiles of 64 channels each; product 1
+    (h @ W1, then b1 and the GELU) writes u into an image of I' / 64 tiles a
+    row tile; product 2 (u @ W2, then the residual) writes out. Each product
+    cuts its output into tiles of two row tiles x WIDE_TILE_COLS columns
+    (`tiles1`, `tiles2`: (row, column) counts) and its depth into 64-deep
+    K blocks (`k_blocks1` = C' / 64, `k_blocks2` = I' / 64). Where product
+    1's tiles
+    would fill fewer than half of the `sms` multiprocessors, its K blocks
+    are cut into `k_splits` runs of `k_per_split` (the last may be shorter,
+    none is empty, each at least WIDE_MIN_SPLIT_BLOCKS long where K allows),
+    whose float32 partial sums a fourth kernel adds in split order before
+    b1 and the GELU. `h_elems` and `u_elems` are the images' bf16 elements,
+    `partial_elems` the float32 elements of the partial sums (0 without a
+    split)."""
+    c_pad, i_pad = padded_width(channels), padded_width(inter)
+    row_tiles = batch * -(-frames // IMAGE_TILE)
+    row_blocks = -(-row_tiles // 2)
+    tiles1 = (row_blocks, -(-i_pad // WIDE_TILE_COLS))
+    tiles2 = (row_blocks, -(-c_pad // WIDE_TILE_COLS))
+    k_blocks1, k_blocks2 = c_pad // IMAGE_TILE, i_pad // IMAGE_TILE
+    splits = 1
+    if 2 * tiles1[0] * tiles1[1] <= sms:
+        splits = max(1, min(sms // (tiles1[0] * tiles1[1]), k_blocks1 // WIDE_MIN_SPLIT_BLOCKS))
+    k_per_split = -(-k_blocks1 // splits)
+    splits = -(-k_blocks1 // k_per_split)
+    rows = row_tiles * IMAGE_TILE
+    return {"row_tiles": row_tiles, "tiles1": tiles1, "tiles2": tiles2,
+            "k_blocks1": k_blocks1, "k_blocks2": k_blocks2,
+            "k_splits": splits, "k_per_split": k_per_split,
+            "h_elems": rows * c_pad, "u_elems": rows * i_pad,
+            "partial_elems": splits * rows * i_pad if splits > 1 else 0}
+
+
+def _swizzle_rows(t):
+    """t (..., 64 rows, 8 groups, 8) with each row's 16-byte group g moved to
+    g ^ (row % 8), the 128-byte swizzle; its own inverse."""
+    rows = torch.arange(IMAGE_TILE, device=t.device)[:, None] % SWIZZLE_GROUPS
+    index = torch.arange(SWIZZLE_GROUPS, device=t.device)[None, :] ^ rows
+    return t.gather(-2, index[..., None].expand_as(t))
+
+
+def to_image(a):
+    """(R * 64, K * 64) -> the flat swizzled image in which the wide path's
+    kernels keep h and u: tile (r, k), the 64 x 64 block at rows 64 r and
+    columns 64 k, at element (r * K + k) * 4096, its row i at 64 i, the
+    16-byte group g of row i at g ^ (i % 8)."""
+    r, k = a.shape[0] // IMAGE_TILE, a.shape[1] // IMAGE_TILE
+    t = a.reshape(r, IMAGE_TILE, k, SWIZZLE_GROUPS, -1).permute(0, 2, 1, 3, 4)
+    return _swizzle_rows(t).reshape(-1)
+
+
+def from_image(image, rows: int, cols: int):
+    """The (rows, cols) matrix that `to_image` laid out as `image`; rows and
+    cols are multiples of 64."""
+    r, k = rows // IMAGE_TILE, cols // IMAGE_TILE
+    t = _swizzle_rows(image[:rows * cols].reshape(r, k, IMAGE_TILE, SWIZZLE_GROUPS, -1))
+    return t.permute(0, 2, 1, 3, 4).reshape(rows, cols)
+
+
+def convnext_block_wide_launch(x, dw, dwb, lnw, lnb, packed, b1, b2, gamma):
+    """Launch B1's wide path on weights from `kernel_weights`, with its
+    scratch (`wide_plan`) from torch.empty; it takes any C up to
+    WIDE_MAX_CHANNELS. `convnext_block_launch` calls it above MAX_CHANNELS;
+    chip_smoke.py also times it at narrower widths."""
+    _check_packed(x, packed, b1)
+    if x.device.type != "cuda":
+        raise ValueError(f"convnext_block_wide_launch: no kernel for device {x.device}")
+    b, t, c = x.shape
+    inter = b1.shape[0]
+    plan = wide_plan(b, t, c, inter, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    out = torch.empty_like(x)
+    h_img = torch.empty(plan["h_elems"], dtype=torch.bfloat16, device=x.device)
+    u_img = torch.empty(plan["u_elems"], dtype=torch.bfloat16, device=x.device)
+    partials = (torch.empty(plan["partial_elems"], dtype=torch.float32, device=x.device)
+                if plan["partial_elems"] else None)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = _library("convnext_block_wide").convnext_block_wide_launch(
+            x.data_ptr(), out.data_ptr(), dw.data_ptr(), dwb.data_ptr(), lnw.data_ptr(),
+            lnb.data_ptr(), packed.data_ptr(), b1.data_ptr(), b2.data_ptr(), gamma.data_ptr(),
+            h_img.data_ptr(), u_img.data_ptr(), None if partials is None else partials.data_ptr(),
+            b, t, c, inter, plan["k_splits"], plan["k_per_split"], int(x.dtype == torch.bfloat16),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"convnext_block_fused: wide-path launch failed with cudaError {err}")
+    convnext_block_fused.launches += 1
+    convnext_block_fused.wide_launches += 1
     return out
 
 
@@ -446,7 +541,7 @@ def kernel_layout_int8(channels: int) -> dict:
 
 _ENTRY_POINTS = {  # library -> (C function, number of pointer and int arguments)
     "convnext_block": ("convnext_block_fused_launch", 10, 5),
-    "convnext_block_wide": ("convnext_block_wide_launch", 11, 5),
+    "convnext_block_wide": ("convnext_block_wide_launch", 13, 7),
     "convnext_block_int8": ("convnext_block_int8_launch", 12, 5),
 }
 

@@ -12,8 +12,9 @@ export `convnext_block_fused_launch` with the shipped signature and take
 the pack of `fused_convnext.kernel_weights`.
 
 Then each build runs in a process of its own, so that a fault stops only
-that one: it is held against the twin at C = 128 / 256 / 384 and at C = 97
-and 500 (padded to 128 and 512), B x T = 1 x 1,
+that one: it is held against the twin at C = 128 / 256 / 384, at C = 97
+and 500 (padded to 128 and 512) and at C = 512 / I = 3072 (its largest
+difference there printed apart), B x T = 1 x 1,
 2 x 65, 4 x 1000 and 32 x 1792, x float32 and bfloat16, within
 chip_smoke.py's tolerances (a variant whose name holds "_no" leaves a part
 out to price it, and is timed only), and timed at B = 32, T = 1792: the
@@ -74,7 +75,7 @@ def check_and_time(name, lib_path) -> dict:
     res = {"name": name, "cases_outside": 0, "max_abs_err": 0.0}
     if "_no" not in name:
         gen = torch.Generator().manual_seed(0)
-        for c, inter in ((128, 512), (256, 1024), (384, 1152), (97, 291), (500, 1000)):
+        for c, inter in ((128, 512), (256, 1024), (384, 1152), (97, 291), (500, 1000), (512, 3072)):
             for b, t in CHECKED:
                 for dtype in (torch.float32, torch.bfloat16):
                     x, p = cs.block_inputs(gen, b, t, c, inter, dtype, "cuda")
@@ -84,6 +85,9 @@ def check_and_time(name, lib_path) -> dict:
                     rtol = cs.BF16_RTOL if dtype == torch.bfloat16 else 0.0
                     res["cases_outside"] += not bool((diff <= cs.ATOL + rtol * ref.abs()).all())
                     res["max_abs_err"] = max(res["max_abs_err"], float(diff.max()))
+                    if (c, inter) == (512, 3072):  # the longest second product at C = 512
+                        key = f"max_abs_err_c512_i3072_{str(dtype)[6:]}"
+                        res[key] = max(res.get(key, 0.0), float(diff.max()))
     gen = torch.Generator().manual_seed(1)
     for key, ((c, inter), dtype) in TIMED.items():
         x, p = cs.block_inputs(gen, 32, 1792, c, inter, dtype, "cuda")
@@ -121,14 +125,16 @@ def build_all(sources: dict) -> dict:
     return built
 
 
-def drive(shipped: Path, variants: str, script: str) -> int:
-    """Build `shipped` and every variants/NAME.cu at once (`build_all`),
+def drive(shipped: Path, variants, script: str) -> int:
+    """Build `shipped` and every variants/NAME.cu (none if `variants` is
+    None) at once (`build_all`),
     then run `script --one NAME LIB` for each build in a process of its own,
     killed after 180 s, and print the RESULT line it prints. Returns 1 if a
     build or a run failed, else 0."""
     print(cs.card_line(), flush=True)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    sources = {"shipped": shipped, **{p.stem: p for p in sorted(Path(variants).glob("*.cu"))}}
+    found = sorted(Path(variants).glob("*.cu")) if variants is not None else []
+    sources = {"shipped": shipped, **{p.stem: p for p in found}}
     built = build_all(sources)
     failed = len(sources) - len(built)
     for name, lib in built.items():

@@ -60,18 +60,19 @@ def wide(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma):
     """The wide path through its library at any C: (out, h image as (B, T, C) bf16)."""
     b, t, c = x.shape
     cp, tiles = fc.padded_width(c), -(-t // 64)
+    plan = fc.wide_plan(b, t, c, b1.shape[0], torch.cuda.get_device_properties(0).multi_processor_count)
     packed = fc.kernel_weights(w1, w2)
     out = torch.empty_like(x)
-    h_img = torch.zeros(b * tiles * 64 * cp, dtype=torch.bfloat16, device=x.device)
+    h_img = torch.zeros(plan["h_elems"], dtype=torch.bfloat16, device=x.device)
+    u_img = torch.empty(plan["u_elems"], dtype=torch.bfloat16, device=x.device)
+    partials = torch.empty(max(1, plan["partial_elems"]), device=x.device)
     err = fc._library("convnext_block_wide").convnext_block_wide_launch(
-        *(q.data_ptr() for q in (x, out, dw, dwb, lnw, lnb, packed, b1, b2, gamma, h_img)),
-        b, t, c, b1.shape[0], 0, torch.cuda.current_stream().cuda_stream)
+        *(q.data_ptr() for q in (x, out, dw, dwb, lnw, lnb, packed, b1, b2, gamma, h_img, u_img,
+                                 partials)),
+        b, t, c, b1.shape[0], plan["k_splits"], plan["k_per_split"], 0,
+        torch.cuda.current_stream().cuda_stream)
     assert err == 0, f"launch failed with cudaError {err}"
-    r = torch.arange(64, device=x.device)[:, None]
-    ch = torch.arange(cp, device=x.device)[None, :]
-    off = (ch // 64) * 8192 + r * 128 + (ch % 64) * 2
-    off = off ^ (((off >> 7) & 7) << 4)  # the 128-byte swizzle
-    h = h_img.view(b, tiles, -1)[:, :, (off // 2).flatten()].view(b, tiles * 64, cp)[:, :t, :c]
+    h = fc.from_image(h_img, b * tiles * 64, cp).view(b, tiles * 64, cp)[:, :t, :c]
     return out, h
 
 

@@ -2,8 +2,8 @@
 JAX Pallas kernel (interpret mode on the CPU), the fused backbones of both
 packages, the shape rule that picks the fused or the unfused block, a fused
 model at a width outside the flagship's against JAX's, the kernel's weight
-pack, the wrapper's argument checks, and, where a card exists, the CUDA
-kernel against its twin.
+pack, the wide path's host plan and image layout, the wrapper's argument
+checks, and, where a card exists, the CUDA kernels against their twin.
 
 The JAX side is imported inside the tests that use it, so that on a machine
 with a card and without JAX the kernel test still collects:
@@ -357,12 +357,13 @@ def test_kernel_matches_twin_on_cuda_at_tile_edges(cuda, dtype, c, inter, b, t):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c,inter", [(192, 1024), (512, 2048), (96, 384), (97, 291),
-                                     (500, 1000)])
+                                     (500, 1000), (512, 3072)])
 @pytest.mark.parametrize("t", [1, 65, 1000])
 def test_kernel_matches_twin_on_cuda_at_new_widths(cuda, dtype, c, inter, t):
     """C = 192 (a width whose LayerNorm masks lanes), C = 512 (the widest,
-    two weight slots), and C = 96, 97 and 500, which the kernel pads to a
-    multiple of 64 (97 with an odd I: rows that are not 16-byte aligned),
+    two weight slots; with I = 3072 the longest second product the rule
+    fuses at that width), and C = 96, 97 and 500, which the kernel pads to
+    a multiple of 64 (97 with an odd I: rows that are not 16-byte aligned),
     within chip_smoke.py phase 3's tolerance."""
     x, p = _block_args(np.random.default_rng(t + c), 2, t, c, inter, dtype)
     x = x.to(cuda)
@@ -416,6 +417,71 @@ def test_wrapper_takes_every_shape_the_rule_accepts(hypothesis_home, data):
               torch.empty(inter, **meta), torch.empty(inter, c, dtype=torch.bfloat16, **meta),
               torch.empty(c, **meta), torch.empty(c, **meta)]
     assert fc._check_args(x, *params) == (1, t, c, inter)
+
+
+def _units(plan, tiles, k_blocks, k_splits, k_per_split):
+    """(row block, column tile, first and end K block) of each work unit, in
+    unit order, as csrc/convnext_block_wide.cu's `tile_of` decodes it: the
+    split fastest, then the column tile, then the row block."""
+    rows, cols = tiles
+    for unit in range(rows * cols * k_splits):
+        split, mn = unit % k_splits, unit // k_splits
+        k0 = split * k_per_split
+        yield mn // cols, mn % cols, k0, min(k_blocks, k0 + k_per_split)
+
+
+@settings(max_examples=200, deadline=None, database=None)
+@given(data=st.data())
+def test_wide_plan_covers_every_tile_and_k_block_once(hypothesis_home, data):
+    """Wherever `kernel_takes(T, C, I)` holds, for B items and any SM count:
+    the wide path's two products cover every (row tile, 64-column chunk, K
+    block) of their outputs exactly once across their work units, no split
+    of product 1 is empty, the tiles hold every row tile and column, and
+    each scratch holds its image (h and u: a row tile of C' or I' columns
+    each; the partial sums: one float32 plane per split)."""
+    tile = data.draw(st.sampled_from(fc.JAX_TILES))
+    t = tile * data.draw(st.integers(1, 2)) - data.draw(st.integers(0, 63))
+    c = data.draw(st.integers(1, 16384))
+    inter = data.draw(st.integers(1, max(1, fc.JAX_VMEM_BYTES // (4 * c))))
+    assume(fc.kernel_takes(tile * (-(-t // tile)), c, inter))
+    b = data.draw(st.integers(1, 3))
+    sms = data.draw(st.sampled_from([fc.H100_SMS, 114, 16]))
+    plan = fc.wide_plan(b, t, c, inter, sms)
+    cp, ip = fc.padded_width(c), fc.padded_width(inter)
+    row_tiles = b * -(-t // 64)
+    assert plan["row_tiles"] == row_tiles
+    assert plan["k_blocks1"] * 64 == cp and plan["k_blocks2"] * 64 == ip
+    splits, per = plan["k_splits"], plan["k_per_split"]
+    assert (splits - 1) * per < plan["k_blocks1"] <= splits * per
+    for tiles, k_blocks, n_cols, s, kps in ((plan["tiles1"], plan["k_blocks1"], ip, splits, per),
+                                            (plan["tiles2"], plan["k_blocks2"], cp, 1,
+                                             plan["k_blocks2"])):
+        assert 2 * tiles[0] >= row_tiles > 2 * (tiles[0] - 1)
+        assert tiles[1] * fc.WIDE_TILE_COLS >= n_cols > (tiles[1] - 1) * fc.WIDE_TILE_COLS
+        seen = np.zeros((tiles[0], tiles[1], k_blocks), np.int64)
+        for m, n, k0, k1 in _units(plan, tiles, k_blocks, s, kps):
+            assert k1 > k0
+            seen[m, n, k0:k1] += 1
+        assert (seen == 1).all()
+    assert plan["h_elems"] == row_tiles * 64 * cp and plan["u_elems"] == row_tiles * 64 * ip
+    assert plan["partial_elems"] == (splits * row_tiles * 64 * ip if splits > 1 else 0)
+    if 2 * plan["tiles1"][0] * plan["tiles1"][1] > sms:
+        assert splits == 1
+
+
+@pytest.mark.parametrize("rows,cols", [(64, 64), (192, 128), (128, 1088)])
+def test_image_layout_inverts_and_is_the_kernels(rows, cols):
+    """`to_image` lays a (rows, cols) matrix out as the wide path's kernels
+    keep h and u, element by element (tile (r, k) at (r * K + k) * 4096, the
+    16-byte group g of row i at g ^ (i % 8)); `from_image` reads it back."""
+    rng = np.random.default_rng(rows + cols)
+    a = torch.from_numpy(rng.normal(size=(rows, cols)).astype(np.float32)).bfloat16()
+    image = fc.to_image(a)
+    assert image.shape == (rows * cols,) and image.dtype == torch.bfloat16
+    r, c = np.meshgrid(np.arange(rows), np.arange(cols), indexing="ij")
+    index = ((r // 64) * (cols // 64) + c // 64) * 4096 + _swizzled((r % 64) * 64 + c % 64)
+    np.testing.assert_array_equal(image.float().numpy()[index], a.float().numpy())
+    assert torch.equal(fc.from_image(image, rows, cols), a)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -486,12 +552,17 @@ def test_fused_model_at_dim_576_matches_jax_fused_model(monkeypatch):
 @pytest.mark.parametrize("c,inter,b,t", [
     (576, 1152, 2, 1000), (576, 1152, 1, 1), (576, 1152, 3, 65), (768, 3072, 2, 1792),
     (768, 3072, 1, 63), (1000, 200, 2, 128), (WIDEST_AT_I64, 64, 2, 64), (4096, 64, 1, 65),
+    (1088, 4160, 1, 129), (577, 1000, 2, 100),
 ])
 def test_kernel_matches_twin_on_cuda_above_512_channels(cuda, dtype, c, inter, b, t):
     """The wide path (csrc/convnext_block_wide.cu) at chip_smoke.py phase 3's
     widths (C = 576 / I = 1152, 768 / 3072 and the small-I extreme), a C
-    that is no multiple of 64 or 256 and T either side of a tile, within
-    phase 3's tolerance of the twin."""
+    that is no multiple of 64 or 128 and T either side of a tile, within
+    phase 3's tolerance of the twin. (4096, 64, 1, 65) and (1088, 4160, 1,
+    129) split product 1's depth (`wide_plan`); the latter's last column
+    tile is ragged in both products (I' = 4160 and C' = 1088 are no
+    multiples of 128) over an odd count of row tiles; C = 577 has rows that
+    are not pair-aligned."""
     x, p = _block_args(np.random.default_rng(t + c), b, t, c, inter, dtype)
     x = x.to(cuda)
     p = [q.to(cuda) for q in p]
@@ -516,19 +587,19 @@ def test_wide_layernorm_h_equals_the_twins_on_cuda(cuda, c, t):
     p = [q.to(cuda) for q in p]
     p[4], p[6] = p[4].bfloat16(), p[6].bfloat16()
     b, cp, tiles = 2, fc.padded_width(c), -(-t // 64)
-    h_img = torch.full((b * tiles * 64 * cp,), float("nan"), dtype=torch.bfloat16, device=cuda)
+    plan = fc.wide_plan(b, t, c, 64, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    h_img = torch.full((plan["h_elems"],), float("nan"), dtype=torch.bfloat16, device=cuda)
+    u_img = torch.empty(plan["u_elems"], dtype=torch.bfloat16, device=cuda)
+    partials = torch.empty(max(1, plan["partial_elems"]), device=cuda)
     out = torch.empty_like(x)
     packed = fc.kernel_weights(p[4], p[6])
     dw, dwb, lnw, lnb, _, b1, _, b2, gamma = p
     err = fc._library("convnext_block_wide").convnext_block_wide_launch(
-        *(q.data_ptr() for q in (x, out, dw, dwb, lnw, lnb, packed, b1, b2, gamma, h_img)),
-        b, t, c, 64, 0, torch.cuda.current_stream().cuda_stream)
+        *(q.data_ptr() for q in (x, out, dw, dwb, lnw, lnb, packed, b1, b2, gamma, h_img, u_img,
+                                 partials)),
+        b, t, c, 64, plan["k_splits"], plan["k_per_split"], 0, torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert err == 0
-    r = torch.arange(64, device=cuda)[:, None]
-    ch = torch.arange(cp, device=cuda)[None, :]
-    off = (ch // 64) * 8192 + r * 128 + (ch % 64) * 2
-    off = off ^ (((off >> 7) & 7) << 4)  # the 128-byte swizzle
-    h = h_img.view(b, tiles, -1)[:, :, (off // 2).flatten()].view(b, tiles * 64, cp)
+    h = fc.from_image(h_img, b * tiles * 64, cp).view(b, tiles * 64, cp)
     assert torch.equal(h[:, :t, :c], fc._dwconv_layernorm(x, *p[:4]).bfloat16())
     assert not h[:, :t, c:].any() and not h[:, t:].any()
