@@ -94,7 +94,23 @@ Phases, each of which fails the run on any error:
      bfloat16 every arm's error against the f32
      oracle is set by the bfloat16 residual stream (the updates a block adds
      below half a bfloat16 step are lost), so the int8 trunk is also run
-     with x in float32 and held under 0.02 of max|oracle| there.
+     with x in float32 and held under 0.02 of max|oracle| there;
+ 14. the user's workflow without JAX, in a temporary directory outside the
+     checkout that is deleted after: the port's synthcorpus writes 48
+     utterances (seed 0, en-g2p), `cli/preprocess.py` turns them into
+     datafiles at the flagship config (en-g2p, ensemble pitch, 4 spawned
+     workers, val fraction 0.125) and `cli/stats.py` computes the
+     statistics, each step's seconds printed; `cli/train.py::main` trains 2
+     steps on them on the card (flagship widths, batch 8, the statistics as
+     `data.statistics.*` overrides, the speaker count from
+     `speaker_ids.json`), the MAS kernel launching once per step and the
+     extraction kernel once per val batch; `cli/infer.py --fused` runs the
+     trained `inference_ckpt/` on the card for SENTENCE (B1 launching 12
+     times per synthesise; each wav read back finite and frames x hop
+     samples long); then phase 4's weights, saved with
+     `OptiSpeech.save_checkpoint`, go through `cli/infer.py --fused` on the
+     card and with `--device cpu` (B1's twin): equal durations, wav files
+     within WAV_ATOL.
 The kernels build in parallel (one nvcc per source, five sources and the probe).
 Prints the kernels' JSON line and the card line, and as its last line
 {"ok": true, "device": {...}}. Without a card, or without the repo beside
@@ -159,6 +175,11 @@ DIM_WIDE = 576  # phase 4: a model at this generator.dim, its decoder at 576/102
 # table): printed beside this run's times, and kept out of the kernels line
 PREVIOUS_INT8_MS = {"trunk": 1.5017, "decoder": 1.1428}
 BENCH = dict(batch=32, n_tokens=120, d_factor=8.0, n_frames=1792)
+# phase 14: the user's workflow on a synthcorpus sample, at the flagship config
+# (`configs/default.yaml`) with the en-g2p front end and its ensemble pitch
+WORKFLOW_UTTERANCES, WORKFLOW_VAL_FRACTION = 48, 0.125
+WORKFLOW_BATCH, WORKFLOW_STEPS = 8, 2
+WORKFLOW_CONFIG = ["data.text_processor.tokenizer=en-g2p"]
 
 
 T0 = [0.0]  # the script's start on the host clock, set by main
@@ -1199,6 +1220,157 @@ def int8_entry_point(fc):
     return launches, res, err
 
 
+def workflow_data(root):
+    """Phase 14 (a): corpus -> datafiles -> statistics through the port's
+    entry points; returns (the datafiles' directory, the statistics)."""
+    from optispeech_tpu_torch.cli import preprocess, stats
+    from optispeech_tpu_torch.data.synthcorpus import generate_corpus
+    from optispeech_tpu_torch.utils.wavio import load_wav
+
+    corpus, data = root / "corpus", root / "data"
+    t0 = time.perf_counter()
+    manifest = generate_corpus(str(corpus), n_utterances=WORKFLOW_UTTERANCES, seed=0,
+                               frontend="en-g2p")
+    t1 = time.perf_counter()
+    train, val = preprocess.main([str(corpus), str(data), *WORKFLOW_CONFIG, "--val-fraction",
+                                  str(WORKFLOW_VAL_FRACTION)])
+    t2 = time.perf_counter()
+    statistics_ = stats.main(["-o", str(data / "stats.json"), *WORKFLOW_CONFIG,
+                              f"data.train_filelist_path={data / 'train.txt'}"])
+    t3 = time.perf_counter()
+    n, sr = manifest["n_utterances"], manifest["sample_rate"]
+    audio_s = sum(len(load_wav(str(p))[0]) for p in (corpus / "wavs").iterdir()) / sr
+    print(f"  corpus (synthcorpus, en-g2p, seed 0): {n} utterances, {audio_s:.1f} s of audio at "
+          f"{sr} Hz, in {t1 - t0:.2f} s ({1e3 * (t1 - t0) / n:.1f} ms per "
+          f"utterance)", flush=True)
+    print(f"  preprocess (cli/preprocess.py, en-g2p, ensemble pitch, 4 spawned workers): "
+          f"{len(train)} train / {len(val)} val in {t2 - t1:.2f} s ({1e3 * (t2 - t1) / n:.1f} ms "
+          f"per utterance)", flush=True)
+    print(f"  stats (cli/stats.py): {len(train)} utterances in {t3 - t2:.2f} s "
+          f"({1e3 * (t3 - t2) / len(train):.1f} ms per utterance): "
+          + ", ".join(f"{k} {v}" for k, v in statistics_.items()), flush=True)
+    assert len(train) + len(val) == n and len(val) == int(n * WORKFLOW_VAL_FRACTION)
+    assert all(np.isfinite(v) for v in statistics_.values()), statistics_
+    assert statistics_["pitch_max"] > statistics_["pitch_min"] >= 0
+    return data, statistics_
+
+
+def workflow_train(data, statistics_, run_dir):
+    """Phase 14 (b): cli/train.py::main on the datafiles, on the card;
+    returns the run's metrics rows and its wall seconds."""
+    from optispeech_tpu_torch.cli import train
+
+    overrides = [*WORKFLOW_CONFIG, f"data.batch_size={WORKFLOW_BATCH}",
+                 f"data.train_filelist_path={data / 'train.txt'}",
+                 f"data.valid_filelist_path={data / 'val.txt'}",
+                 f"val_every_n_steps={WORKFLOW_STEPS}", "log_every_n_steps=1",
+                 *(f"data.statistics.{k}={v}" for k, v in statistics_.items())]
+    t0 = time.perf_counter()
+    train.main(["--device", "cuda", "--out-dir", str(run_dir), "--max-steps",
+                str(WORKFLOW_STEPS), "--no-print-config", *overrides])
+    seconds = time.perf_counter() - t0
+    rows = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    return rows, seconds
+
+
+def workflow_infer(ckpt, out_dir, *flags):
+    """`cli/infer.py --fused` on `ckpt` for SENTENCE; returns the outputs and
+    the wavs it wrote, read back with the port's load_wav."""
+    from optispeech_tpu_torch.cli import infer
+    from optispeech_tpu_torch.utils.wavio import load_wav
+
+    out = infer.main([str(ckpt), SENTENCE, str(out_dir), "--fused", *flags])
+    wavs = [load_wav(str(out_dir / f"gen-{i + 1}.wav"))[0] for i in range(len(out.wav_lengths))]
+    assert sorted(p.name for p in out_dir.iterdir()) == [f"gen-{i + 1}.wav"
+                                                        for i in range(len(wavs))]
+    return out, wavs
+
+
+def check_wavs(out, wavs, hop, label):
+    frames = out.durations.sum(axis=1)
+    assert len(wavs) == 2, f"{label}: {len(wavs)} wavs for two sentences"
+    for i, wav in enumerate(wavs):
+        assert np.isfinite(wav).all(), f"{label}: gen-{i + 1}.wav is not finite"
+        assert len(wav) == frames[i] * hop, (
+            f"{label}: gen-{i + 1}.wav holds {len(wav)} samples, not {frames[i]} x {hop}")
+        assert len(wav) > 0, f"{label}: gen-{i + 1}.wav is empty"
+
+
+def user_workflow(fc, mas):
+    """Phase 14 in a temporary directory outside the checkout, deleted
+    after; returns B1's launches over the phase."""
+    import shutil
+    import tempfile
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_workflow_"))
+    try:
+        return _user_workflow(fc, mas, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _user_workflow(fc, mas, root):
+    from optispeech_tpu_torch.models.optispeech import OptiSpeech
+
+    data, statistics_ = workflow_data(root)
+
+    for counted in (fc.convnext_block_fused, fc.convnext_block_fused_int8, mas.viterbi_decode,
+                    mas.viterbi_decode_extract):
+        counted.launches = 0
+    run_dir = root / "run"
+    rows, train_s = workflow_train(data, statistics_, run_dir)
+    n_val = len((data / "val.txt").read_text().splitlines())
+    val_batches = -(-n_val // WORKFLOW_BATCH)
+    ckpt = run_dir / "inference_ckpt"
+    speakers = json.loads((ckpt / "config.json").read_text())["config"]["generator"]["num_speakers"]
+    step_ms = [1e3 / r["perf/steps_per_sec"] for r in rows if "perf/steps_per_sec" in r]
+    val_rows = [r for r in rows if "total_loss/val_total" in r]
+    bad = [(r["step"], k) for r in rows for k, v in r.items() if not np.isfinite(v)]
+    mas_launches = (mas.viterbi_decode.launches, mas.viterbi_decode_extract.launches)
+    print(f"  train (cli/train.py::main, flagship widths, batch {WORKFLOW_BATCH}, "
+          f"{WORKFLOW_STEPS} steps, {speakers} speakers from speaker_ids.json): {train_s:.1f} s in "
+          f"all (set-up, steps, validation, checkpoint, export); steps (metrics.jsonl "
+          f"perf/steps_per_sec) {', '.join(f'{ms:.1f}' for ms in step_ms)} ms; MAS launches "
+          f"{mas_launches[0]}, extraction launches {mas_launches[1]} over {len(val_rows)} "
+          f"validation(s) of {val_batches} batch(es)", flush=True)
+    assert not bad, f"non-finite logged values at {bad}"
+    assert speakers == 4, f"the run trained {speakers} speakers, not the corpus's 4"
+    assert len(step_ms) == WORKFLOW_STEPS and len(val_rows) == 1
+    assert mas_launches[0] == WORKFLOW_STEPS, "expected one wavefront MAS launch per step"
+    assert mas_launches[1] == val_batches, "expected one extraction launch per val batch"
+    assert fc.convnext_block_fused.launches == fc.convnext_block_fused_int8.launches == 0
+
+    feats = flagship_config().generator.features
+    hop, sr = feats.hop_length, feats.sample_rate
+    fc.convnext_block_fused.launches = 0
+    out, wavs = workflow_infer(ckpt, root / "infer_trained")
+    trained_launches = fc.convnext_block_fused.launches
+    print(f"  infer (cli/infer.py --fused, the trained checkpoint): {len(wavs)} wavs, "
+          f"{int(out.wav_lengths.sum()) / sr:.3f} s of audio; latency {out.latency:.2f} ms, "
+          f"rtf {out.rtf:.5f}; B1 launches {trained_launches}", flush=True)
+    check_wavs(out, wavs, hop, "trained")
+    assert trained_launches == 12, f"expected 12 B1 launches per synthesise, got {trained_launches}"
+
+    OptiSpeech(flagship_config(), seed=0, device="cpu").save_checkpoint(str(root / "flagship"))
+    fc.convnext_block_fused.launches = 0
+    card, card_wavs = workflow_infer(root / "flagship", root / "infer_card")
+    card_launches = fc.convnext_block_fused.launches
+    cpu, cpu_wavs = workflow_infer(root / "flagship", root / "infer_cpu", "--device", "cpu")
+    assert fc.convnext_block_fused.launches == card_launches, "the CPU run launched B1"
+    check_wavs(card, card_wavs, hop, "card")
+    check_wavs(cpu, cpu_wavs, hop, "cpu")
+    dur_equal = np.array_equal(card.durations, cpu.durations)
+    wav_diff = max(float(np.abs(a - b).max()) for a, b in zip(card_wavs, cpu_wavs))
+    print(f"  infer (cli/infer.py --fused, phase 4's flagship weights through "
+          f"OptiSpeech.save_checkpoint): card latency {card.latency:.2f} ms, rtf {card.rtf:.5f}, B1 launches {card_launches}; "
+          f"card against --device cpu: durations equal {dur_equal}, wav files max|card - cpu| "
+          f"{wav_diff:.3e} (atol {WAV_ATOL})", flush=True)
+    assert card_launches == 12, f"expected 12 B1 launches per synthesise, got {card_launches}"
+    assert dur_equal, "durations differ between card and CPU through cli/infer.py"
+    assert wav_diff <= WAV_ATOL, f"wav files differ between card and CPU by {wav_diff}"
+    return trained_launches + card_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1289,6 +1461,12 @@ def main() -> int:
     phase("13. the int8 A/B at its default shape (cli/int8_ab.py::main)")
     ab_launches, ab, ab_f32_err = int8_entry_point(fc)
 
+    phase("14. the user's workflow without JAX (synthcorpus -> preprocess -> stats -> train "
+          "-> infer)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    workflow_launches = user_workflow(fc, mas)
+
     trunk = rows["trunk"]
     kernel = {
         "name": "convnext_block_fused", "route": "cuda",
@@ -1296,6 +1474,7 @@ def main() -> int:
         "replaces": "optispeech_tpu/ops/pallas_convnext.py:224",
         "launches": launches, "launch_path": "phase 4, synthesis",
         "launches_dim192_decode": dim192_launches,
+        "launches_phase_14": workflow_launches,
         "max_abs_err": max_abs_err["narrow"],
         "ms": trunk["ms"], "plain_ms": trunk["plain_ms"], "bound_ms": trunk["bound_ms"],
         "bound_by": trunk["bound_by"], "library_ms": trunk["library_ms"],

@@ -89,11 +89,13 @@ class SyntheticDataset:
 
 class BucketedCollate:
     """Zero-pad a list of items into one batch at bucket-rounded static shapes
-    and apply dataset-statistics normalization."""
+    and apply dataset-statistics normalization (`do_normalize=False` leaves
+    the features raw, as `cli/stats.py` needs them)."""
 
     def __init__(self, n_feats: int, statistics: DataStatistics, hop_length: int,
                  text_bucket: int = 32, mel_bucket: int = 128,
-                 max_text_len: Optional[int] = None, max_mel_len: Optional[int] = None):
+                 max_text_len: Optional[int] = None, max_mel_len: Optional[int] = None,
+                 do_normalize: bool = True):
         self.n_feats = n_feats
         self.stats = statistics
         self.hop_length = hop_length
@@ -101,6 +103,7 @@ class BucketedCollate:
         self.mel_bucket = mel_bucket
         self.max_text_len = max_text_len
         self.max_mel_len = max_mel_len
+        self.do_normalize = do_normalize
 
     def __call__(self, batch: list[dict]) -> dict:
         b = len(batch)
@@ -155,11 +158,12 @@ class BucketedCollate:
         if lids_arr is not None:
             assert lids_arr.shape[0] == b, "Not all language IDs are provided"
 
-        s = self.stats
-        wav = wav.clip(-1, 1)
-        mel = (mel - s.mel_mean) / s.mel_std
-        energies = (energies - s.energy_mean) / s.energy_std
-        pitches = (pitches - s.pitch_mean) / s.pitch_std
+        if self.do_normalize:
+            s = self.stats
+            wav = wav.clip(-1, 1)
+            mel = (mel - s.mel_mean) / s.mel_std
+            energies = (energies - s.energy_mean) / s.energy_std
+            pitches = (pitches - s.pitch_mean) / s.pitch_std
 
         return dict(
             x=x, wav=wav, mel=mel,
@@ -174,7 +178,7 @@ class DataLoader:
     """Length-grouped, shuffled batching with a background prefetch thread.
 
     One process reads every batch: the JAX loader's sharding over processes
-    comes with multi-process training (ROADMAP.md, queue A item 12).
+    comes with multi-process training (ROADMAP.md, queue A item 7).
 
     Resume: `state_dict()/load_state_dict()` capture (epoch, position) so a
     restored run continues from the exact batch it stopped at."""

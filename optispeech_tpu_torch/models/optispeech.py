@@ -1,4 +1,5 @@
-"""Top-level model API: prepare_input / synthesise / synthesise_on_device.
+"""Top-level model API: prepare_input / synthesise / synthesise_on_device,
+and the inference checkpoint (save_checkpoint / load_from_checkpoint).
 
 Port of `optispeech_tpu/models/optispeech.py`. Inference runs in two stages
 as in JAX: token-rate `encode` at a text bucket, one host sync that reads the
@@ -65,9 +66,18 @@ class OptiSpeech:
         return cls(cfg, device=device, speakers=speakers,
                    state_dict=state_dict_from_jax_params(params_np, cfg.generator))
 
+    def save_checkpoint(self, path: str):
+        """Write an inference checkpoint (`config.json` with the config and
+        the speakers, `generator.pt`) that `load_from_checkpoint` reads."""
+        from ..training.checkpoint import save_inference_checkpoint
+
+        save_inference_checkpoint(path, self.cfg, self.generator.state_dict(),
+                                  speakers=self.speakers)
+
     @classmethod
     def load_from_checkpoint(cls, path: str, device=None, fused: bool = False) -> "OptiSpeech":
-        """Build from an inference checkpoint (`save_inference_checkpoint`);
+        """Build from an inference checkpoint (`save_checkpoint`,
+        `save_inference_checkpoint`);
         `fused=True` routes the decoder and the vocoder trunk through the
         fused block (`with_fused_blocks`)."""
         from ..training.checkpoint import load_inference_checkpoint

@@ -41,6 +41,11 @@ TRAINING_MODULES = [f"optispeech_tpu_torch.{m}" for m in (
     "utils.pylogger", "cli.train")]
 # the int8 A/B slice
 INT8_MODULES = [f"optispeech_tpu_torch.{m}" for m in ("ops.fused_convnext", "cli.int8_ab")]
+# the workflow slice: inference from the command line and the data pipeline
+WORKFLOW_MODULES = [f"optispeech_tpu_torch.{m}" for m in (
+    "utils.wavio", "models.optispeech", "cli.infer", "data.dsp", "data.pitch", "data.vad",
+    "data.preprocess", "data.statistics", "data.datamodule", "cli.preprocess", "cli.stats",
+    "data.synthcorpus")]
 
 # without pyyaml the CLI imports and trains a config built in code; only
 # reading a YAML file needs it
@@ -65,7 +70,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     first, imported = proc.stdout.splitlines()[:2]
     assert int(first.split()[0]) >= 35  # every module of the package was imported
-    assert set(TRAINING_MODULES + INT8_MODULES) <= set(imported.split())
+    assert set(TRAINING_MODULES + INT8_MODULES + WORKFLOW_MODULES) <= set(imported.split())
 
 
 def test_training_cli_imports_without_yaml():
