@@ -110,7 +110,27 @@ Phases, each of which fails the run on any error:
      samples long); then phase 4's weights, saved with
      `OptiSpeech.save_checkpoint`, go through `cli/infer.py --fused` on the
      card and with `--device cpu` (B1's twin): equal durations, wav files
-     within WAV_ATOL.
+     within WAV_ATOL;
+ 15. the bf16 compute path, on phase 4's weights (seed 0): (a) the flagship
+     fused in bf16 runs prepare_input -> synthesise on SENTENCE (B1
+     launching 12 times per decode, each time on bf16 x) and
+     synthesise_on_device at bench shape (median of 5 beside phase 4's
+     f32 figure), B1 held against its twin on the bf16 x that the model
+     gives its first decoder and first trunk block there, and its wav and
+     the unfused bf16 model's against the f32 model's (max|d|/max|ref| and
+     correlation, each decoding the f32 model's encoder outputs); (b) the
+     bf16 model on the card against the CPU, batch 2 at 256 frames:
+     durations equal, or one frame apart where one bf16 step moves the
+     ceiling (each such token printed with its value), the wav within
+     BF16_WAV_RTOL; (c) phase 7's training with G in bf16 (1 warm-up and 3
+     timed steps, peak memory, B3 once per step), a bf16 step card against
+     CPU at phase 8's size and a bf16 validation at phase 11's (B4 once),
+     every log within BF16_STEP_LOG_RTOL; (d) `cli/infer.py --fused` and
+     `--bf16 --fused` once each in a fresh process (build/ populated): wall
+     time, latency, B1 launches, and the bf16 wav files against
+     `--device cpu`; (e) phase 7's f32 step from the same state with TF32
+     on and off, set by this script only: the logs' gaps and the time (an
+     observation: the port keeps TF32 off).
 The kernels build in parallel (one nvcc per source, five sources and the probe).
 Prints the kernels' JSON line and the card line, and as its last line
 {"ok": true, "device": {...}}. Without a card, or without the repo beside
@@ -180,6 +200,13 @@ BENCH = dict(batch=32, n_tokens=120, d_factor=8.0, n_frames=1792)
 WORKFLOW_UTTERANCES, WORKFLOW_VAL_FRACTION = 48, 0.125
 WORKFLOW_BATCH, WORKFLOW_STEPS = 8, 2
 WORKFLOW_CONFIG = ["data.text_processor.tokenizer=en-g2p"]
+# phase 15: the bf16 compute path. Card against CPU: the wav within this share
+# of max|wav| (tests/test_torch_bf16.py's WAV_RTOL, port against JAX on the
+# CPU), on the items whose durations are equal; a duration may differ only
+# where one bf16 step moves its ceiling. Every log of a bf16 step within
+# BF16_STEP_LOG_RTOL (tests/test_torch_bf16_train.py: at most 1.2e-2).
+BF16_WAV_RTOL = 3e-2
+BF16_STEP_LOG_RTOL = 2e-2
 
 
 T0 = [0.0]  # the script's start on the host clock, set by main
@@ -432,7 +459,7 @@ def wide_ptxas(info, fc) -> list:
     return found
 
 
-def flagship_config():
+def flagship_config(fused=True):
     import dataclasses
 
     from optispeech_tpu_torch.config import ExperimentConfig
@@ -441,7 +468,7 @@ def flagship_config():
     cfg = ExperimentConfig()
     tp = dataclasses.replace(cfg.data.text_processor, tokenizer="en-g2p")
     cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, text_processor=tp))
-    return with_fused_blocks(cfg)
+    return with_fused_blocks(cfg) if fused else cfg
 
 
 def bench_inputs():
@@ -456,7 +483,8 @@ def bench_inputs():
 
 
 def main_path(fc, mas, api):
-    """Returns the fused block's launch count over the main path's runs."""
+    """Returns the fused block's launch count over the main path's runs and
+    the median wall ms of synthesise_on_device at bench shape."""
     fc.convnext_block_fused.launches = 0
     fc.convnext_block_fused_int8.launches = 0
     mas.viterbi_decode.launches = 0
@@ -499,7 +527,7 @@ def main_path(fc, mas, api):
           f"{len(walls)} calls (min {min(walls):.2f}), {audio_s:.2f} s of audio, "
           f"{int(o['y_lengths'].sum())} frames -> {audio_s / (ms / 1e3):.1f}x real time "
           f"(observation, not a claim)", flush=True)
-    return launches
+    return launches, ms
 
 
 def cross_device(api):
@@ -720,16 +748,17 @@ def time_mas(mas, device, chain_probe):
     return row
 
 
-def training_config(pretraining_steps=0, dropout=True):
+def training_config(pretraining_steps=0, dropout=True, compute_dtype="float32"):
     """The flagship ExperimentConfig with the discriminator trained from the
-    first step; `dropout=False` sets every dropout and drop-path rate to 0."""
+    first step, G computing in `compute_dtype`; `dropout=False` sets every
+    dropout and drop-path rate to 0."""
     import dataclasses
 
     from optispeech_tpu_torch.config import ExperimentConfig
 
     cfg = ExperimentConfig()
     cfg = dataclasses.replace(cfg, train_args=dataclasses.replace(
-        cfg.train_args, pretraining_steps=pretraining_steps))
+        cfg.train_args, pretraining_steps=pretraining_steps, compute_dtype=compute_dtype))
     if dropout:
         return cfg
     g = cfg.generator
@@ -770,13 +799,13 @@ def training_batch(cfg, b, t_text, t_mel, device, seed=0):
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
-def train_full_width(fc, mas):
+def train_full_width(fc, mas, compute_dtype="float32"):
     """Returns the MAS kernel's launch count over the 4 steps and their
     synchronised wall times in ms."""
     from optispeech_tpu_torch.training.state import init_train_state
     from optispeech_tpu_torch.training.step import make_train_step
 
-    cfg = training_config()
+    cfg = training_config(compute_dtype=compute_dtype)
     state = init_train_state(cfg, "cuda", seed=0)
     n_g = sum(p.numel() for p in state.generator.parameters())
     n_d = sum(p.numel() for p in state.discriminator.parameters())
@@ -785,7 +814,8 @@ def train_full_width(fc, mas):
     b, (t_text, t_mel) = cfg.data.batch_size, (MAS_SHAPE[2], MAS_SHAPE[1])
     batch = training_batch(cfg, b, t_text, t_mel, "cuda")
     step = make_train_step(cfg)
-    print(f"  ExperimentConfig() (pretraining_steps=0), seed 0: G {n_g} / D {n_d} parameters; "
+    print(f"  ExperimentConfig() (pretraining_steps=0, G in {compute_dtype}), seed 0: "
+          f"G {n_g} / D {n_d} parameters; "
           f"batch {b}, {t_text} tokens, {t_mel} frames, segment {cfg.generator.segment_size}",
           flush=True)
     torch.cuda.reset_peak_memory_stats()
@@ -816,11 +846,11 @@ def train_full_width(fc, mas):
     return mas_launches, walls
 
 
-def train_cross_device():
+def train_cross_device(compute_dtype="float32", rtol=STEP_LOG_RTOL):
     from optispeech_tpu_torch.training.state import init_train_state
     from optispeech_tpu_torch.training.step import make_train_step
 
-    cfg = training_config(dropout=False)
+    cfg = training_config(dropout=False, compute_dtype=compute_dtype)
     states = {dev: init_train_state(cfg, dev, seed=0) for dev in ("cuda", "cpu")}
     for part in ("generator", "discriminator"):
         sd = getattr(states["cuda"], part).state_dict()
@@ -841,10 +871,11 @@ def train_cross_device():
                                                                         1e-12)
             for k in logs["cpu"]}
     worst = max(gaps, key=gaps.get)
-    print(f"  batch 4, 32 tokens, 128 frames, no dropout: durations equal {dur_equal}; largest "
-          f"relative log gap {gaps[worst]:.2e} ({worst}; rtol {STEP_LOG_RTOL})", flush=True)
+    print(f"  batch 4, 32 tokens, 128 frames, no dropout, G in {compute_dtype}: durations equal "
+          f"{dur_equal}; largest relative log gap {gaps[worst]:.2e} ({worst}; rtol {rtol})",
+          flush=True)
     assert dur_equal, "MAS durations differ between card and CPU"
-    assert gaps[worst] <= STEP_LOG_RTOL, f"{worst} differs between card and CPU by {gaps[worst]}"
+    assert gaps[worst] <= rtol, f"{worst} differs between card and CPU by {gaps[worst]}"
 
 
 def check_extract(mas, device):
@@ -1035,11 +1066,12 @@ def _train_entry_point(fc, mas, bare_ms, cfg, out_dir):
     return launches
 
 
-def val_cross_device():
+def val_cross_device(mas, compute_dtype="float32", rtol=STEP_LOG_RTOL):
+    """Returns the extraction kernel's launches in the card's step."""
     from optispeech_tpu_torch.training.state import init_train_state
     from optispeech_tpu_torch.training.step import make_val_step
 
-    cfg = training_config(dropout=False)
+    cfg = training_config(dropout=False, compute_dtype=compute_dtype)
     states = {dev: init_train_state(cfg, dev, seed=0) for dev in ("cuda", "cpu")}
     for part in ("generator", "discriminator"):
         sd = getattr(states["cuda"], part).state_dict()
@@ -1049,7 +1081,10 @@ def val_cross_device():
     logs, durations = {}, {}
     for dev, state in states.items():
         b = batches[dev]
+        mas.viterbi_decode_extract.launches = 0
         logs[dev] = step(state, b)[0]
+        if dev == "cuda":
+            launches = mas.viterbi_decode_extract.launches
         with torch.no_grad():
             durations[dev] = state.generator(
                 *[b[k] for k in ("x", "x_lengths", "mel", "mel_lengths", "pitches", "energies")],
@@ -1059,10 +1094,13 @@ def val_cross_device():
                                                                         1e-12)
             for k in logs["cpu"]}
     worst = max(gaps, key=gaps.get)
-    print(f"  batch 4, 32 tokens, 128 frames, no dropout: durations equal {dur_equal}; largest "
-          f"relative log gap {gaps[worst]:.2e} ({worst}; rtol {STEP_LOG_RTOL})", flush=True)
+    print(f"  batch 4, 32 tokens, 128 frames, no dropout, G in {compute_dtype}: durations equal "
+          f"{dur_equal}; largest relative log gap {gaps[worst]:.2e} ({worst}; rtol {rtol}); "
+          f"extraction kernel launches on the card {launches}", flush=True)
     assert dur_equal, "extraction durations differ between card and CPU"
-    assert gaps[worst] <= STEP_LOG_RTOL, f"{worst} differs between card and CPU by {gaps[worst]}"
+    assert gaps[worst] <= rtol, f"{worst} differs between card and CPU by {gaps[worst]}"
+    assert launches == 1, f"expected one extraction launch per val batch, got {launches}"
+    return launches
 
 
 def int8_agreement(got, ref, rtol):
@@ -1371,6 +1409,279 @@ def _user_workflow(fc, mas, root):
     return trained_launches + card_launches
 
 
+def one_step_from_a_ceiling(d, factor):
+    """Whether moving each bf16 value of `d` by one bf16 step moves
+    ceil(d * factor): where two correct bf16 computations may give two
+    durations."""
+    d = d.float()
+    step = torch.exp2(torch.floor(torch.log2(d.abs().clamp(min=1e-30))) - 7)
+    ceil = torch.ceil(d * factor)
+    return (torch.ceil((d - step) * factor) != ceil) | (torch.ceil((d + step) * factor) != ceil)
+
+
+def bf16_durations_before_ceiling(api, inputs):
+    """exp(log-duration) - clip in bf16, (B, T_text): the durations before
+    the factor and the ceiling, as `api` computes them."""
+    from optispeech_tpu_torch.ops import sequence_mask
+
+    gen = api.generator
+    x, x_lengths, sids, lids = api._tensors(inputs)[:4]
+    pad = ~sequence_mask(x_lengths, x.shape[1])
+    with torch.inference_mode():
+        h = gen._encode_text(x, pad, sids, lids)
+        return (torch.exp(gen.duration_predictor(h, pad)) - gen.duration_predictor.clip_val).cpu()
+
+
+def durations_under_the_rule(got, ref, before_ceiling, factor, label):
+    """Card against CPU durations: equal, or a token one frame apart where
+    one bf16 step moves its ceiling. Returns the items whose durations are
+    equal, after printing each token that differs."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    moved = got != ref
+    near = one_step_from_a_ceiling(before_ceiling, factor).numpy()
+    for i, j in np.argwhere(moved):
+        print(f"    {label}: token ({i}, {j}) {got[i, j]} on the card, {ref[i, j]} on the CPU; "
+              f"bf16 duration before the ceiling {float(before_ceiling[i, j])!r} x {factor} "
+              f"= {float(before_ceiling[i, j]) * factor!r}; one bf16 step from a ceiling "
+              f"{bool(near[i, j])}", flush=True)
+    assert np.all(np.abs(got - ref) <= 1) and near[moved].all(), (
+        f"{label}: durations differ beyond the rule")
+    return ~moved.any(axis=1)
+
+
+def wav_error(wav, ref):
+    """max|wav - ref| / max|ref| and the correlation, over every sample."""
+    wav, ref = wav.float().cpu().numpy().ravel(), ref.float().cpu().numpy().ravel()
+    return (float(np.abs(wav - ref).max() / np.abs(ref).max()),
+            float(np.corrcoef(wav, ref)[0, 1]))
+
+
+def bf16_synthesis(fc, f32_bench_ms):
+    """(a) The flagship, fused, in bf16 on phase 4's weights (seed 0):
+    prepare_input -> synthesise, with B1 launching 12 times per decode on
+    bf16 x; synthesise_on_device at bench shape, where B1 is held against
+    its twin on the bf16 x that the first decoder and the first trunk block
+    receive; its wav and the unfused bf16 model's against the f32 model's,
+    each decoding the f32 model's encoder outputs (so that all three share
+    their durations). Returns B1's launches per decode, the median ms, the
+    wav errors and the CPU copy of the weights."""
+    from optispeech_tpu_torch.models.modules import convnext
+    from optispeech_tpu_torch.models.optispeech import OptiSpeech
+
+    bf16 = torch.bfloat16
+    api = OptiSpeech(flagship_config(), seed=0, device="cuda", compute_dtype=bf16)
+    seen, captured, wrapper = [], {}, convnext.convnext_block_fused
+
+    def recording(x, *args, **kw):
+        seen.append(x.dtype)
+        if x.shape[0] == BENCH["batch"]:
+            captured.setdefault(x.shape[-1], (x.clone(), args))
+        return wrapper(x, *args, **kw)
+
+    convnext.convnext_block_fused = recording
+    try:
+        fc.convnext_block_fused.launches = 0
+        inputs = api.prepare_input(SENTENCE)
+        out = api.synthesise(inputs)
+        launches = fc.convnext_block_fused.launches
+        print(f"  synthesise (bf16, fused): {inputs.x.shape[0]} sentences -> wav "
+              f"{out.wav.shape}, latency {out.latency:.2f} ms, rtf {out.rtf:.5f}; B1 launches "
+              f"{launches}, x {sorted({str(d) for d in seen})}", flush=True)
+        assert np.isfinite(out.wav).all() and out.wav.dtype == np.float32
+        assert launches == 12, f"expected 12 B1 launches per bf16 decode, got {launches}"
+        assert seen == [bf16] * 12, f"B1 took x in {set(seen)}, not bf16 alone"
+        bench, n_frames = bench_inputs(), BENCH["n_frames"]
+        fc.convnext_block_fused.launches = 0
+        o = api.synthesise_on_device(bench, n_frames)  # warm-up
+        torch.cuda.synchronize()
+    finally:
+        convnext.convnext_block_fused = wrapper
+    assert sorted(captured) == [256, 384] and seen == [bf16] * 24
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        o = api.synthesise_on_device(bench, n_frames)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    bench_launches = fc.convnext_block_fused.launches
+    assert bench_launches == 12 * 6, f"expected {12 * 6} B1 launches, got {bench_launches}"
+    for c, (x, args) in sorted(captured.items()):
+        got = fc.convnext_block_fused(x, *args)
+        ref = fc.convnext_block_reference(x, *args)
+        diff = (got.float() - ref.float()).abs()
+        ok = bool((diff <= ATOL + BF16_RTOL * ref.float().abs()).all())
+        print(f"  B1 on the model's bf16 x {tuple(x.shape)}: max|kernel - twin| "
+              f"{float(diff.max()):.3e} (atol {ATOL}, rtol {BF16_RTOL:.4f}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        assert ok and got.dtype == bf16, f"B1 disagrees with its twin on the model's x at C={c}"
+    assert bool(torch.isfinite(o["wav"]).all())
+    ms = statistics.median(walls)
+    audio_s = float(o["wav_lengths"].sum()) / api.sample_rate
+    print(f"  synthesise_on_device at bench shape (bf16, fused): median {ms:.2f} ms over 5 calls "
+          f"(min {min(walls):.2f}), {audio_s:.2f} s of audio; phase 4's f32 {f32_bench_ms:.2f} ms "
+          f"(observation, not a claim)", flush=True)
+
+    state_dict = {k: v.cpu() for k, v in api.generator.state_dict().items()}
+    f32 = OptiSpeech(flagship_config(), device="cuda", state_dict=state_dict)
+    unfused = OptiSpeech(flagship_config(fused=False), device="cuda", state_dict=state_dict,
+                         compute_dtype=bf16)
+    with torch.inference_mode():
+        x, x_lengths, sids, lids, d, p, e = f32._tensors(bench)
+        enc = f32.generator.encode(x, x_lengths, sids, lids, d, p, e)
+        y_lengths = torch.clamp(enc["y_lengths"], max=n_frames)
+        args = (enc["durations"], enc["x_mask"], y_lengths, n_frames)
+        ref = f32.generator.decode(enc["hidden"], *args)["wav"]
+        errors = {name: wav_error(m.generator.decode(enc["hidden"].to(bf16), *args)["wav"], ref)
+                  for name, m in (("fused", api), ("unfused", unfused))}
+        o32 = f32.synthesise_on_device(bench, n_frames)
+    moved = float((o32["durations"] != o["durations"]).float().mean())
+    print("  against the f32 model's wav on its encoder outputs (bench shape): "
+          + "; ".join(f"{name} bf16 max|d|/max|ref| {rel:.3e}, correlation {corr:.6f}"
+                      for name, (rel, corr) in errors.items())
+          + f"; the bf16 encoder moves {moved:.2%} of the f32 durations at d_factor "
+          f"{BENCH['d_factor']} (observation)", flush=True)
+    del api, f32, unfused
+    return launches, ms, errors, state_dict
+
+
+def bf16_cross_device(state_dict):
+    """(b) The bf16 flagship on the card and on the CPU (B1's twin), batch 2
+    at 256 frames. Returns the CPU model, for phase (d)'s checkpoint."""
+    from optispeech_tpu_torch.models.optispeech import OptiSpeech
+
+    apis = {dev: OptiSpeech(flagship_config(), device=dev, state_dict=state_dict,
+                            compute_dtype=torch.bfloat16) for dev in ("cuda", "cpu")}
+    inputs = apis["cpu"].prepare_input(SENTENCE)
+    outs = {dev: a.synthesise_on_device(inputs, 256) for dev, a in apis.items()}
+    d_factor = float(inputs.d_factor)
+    same = durations_under_the_rule(outs["cuda"]["durations"].cpu(), outs["cpu"]["durations"],
+                                    bf16_durations_before_ceiling(apis["cpu"], inputs), d_factor,
+                                    "bf16 card against CPU")
+    gpu, cpu = outs["cuda"]["wav"].cpu()[same], outs["cpu"]["wav"][same]
+    rel = float((gpu - cpu).abs().max() / cpu.abs().max()) if len(cpu) else float("nan")
+    print(f"  batch 2, 256 frames, bf16: durations equal on {int(same.sum())} of {len(same)} "
+          f"items; their wav max|card - cpu|/max|cpu| {rel:.3e} (rtol {BF16_WAV_RTOL})",
+          flush=True)
+    assert same.any(), "no item kept its durations between card and CPU"
+    assert rel <= BF16_WAV_RTOL, f"bf16 wav differs between card and CPU by {rel}"
+    return apis["cpu"]
+
+
+INFER_CHILD = ("import sys, time; t0 = time.perf_counter(); "
+               "from optispeech_tpu_torch.cli import infer; "
+               "from optispeech_tpu_torch.ops import fused_convnext as fc; "
+               "out = infer.main(sys.argv[1:]); "
+               "print('cold', fc.convnext_block_fused.launches, out.latency, "
+               "time.perf_counter() - t0)")
+
+
+def infer_cold(ckpt, out_dir, *flags):
+    """`cli/infer.py --fused` on `ckpt` in a fresh process (CUDA, cuDNN and
+    the kernels' libraries loaded anew; build/ already holds them). Returns
+    its wall s, B1 launches, latency ms and the wavs it wrote."""
+    from optispeech_tpu_torch.utils.wavio import load_wav
+
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", INFER_CHILD, str(ckpt), SENTENCE, str(out_dir),
+                        "--fused", *flags], cwd=Path(__file__).resolve().parent,
+                       capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if r.returncode:
+        print(r.stdout[-2000:], r.stderr[-4000:], sep="\n")
+        raise AssertionError(f"cli/infer.py {' '.join(flags)} failed in a fresh process")
+    _, launches, latency, _ = [ln for ln in r.stdout.splitlines() if ln.startswith("cold ")][-1]\
+        .split()
+    wavs = [load_wav(str(p))[0] for p in sorted(Path(out_dir).glob("gen-*.wav"))]
+    return wall, int(launches), float(latency), wavs
+
+
+def infer_cold_runs(cpu_api):
+    """(d) `--fused` and `--bf16 --fused` once each in a fresh process on the
+    flagship weights, then `--bf16 --fused --device cpu` here: the bf16 wav
+    files card against CPU. In a temporary directory, deleted after."""
+    import shutil
+    import tempfile
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_bf16_"))
+    try:
+        cpu_api.save_checkpoint(str(root / "ckpt"))
+        runs = {}
+        for label, flags in (("--fused", ()), ("--bf16 --fused", ("--bf16",))):
+            runs[label] = infer_cold(root / "ckpt", root / label.replace(" ", ""), *flags)
+            wall, launches, latency, wavs = runs[label]
+            print(f"  cli/infer.py {label}, fresh process: {wall:.2f} s wall, latency "
+                  f"{latency:.2f} ms, B1 launches {launches}, {len(wavs)} wavs", flush=True)
+            assert launches == 12, f"{label}: expected 12 B1 launches, got {launches}"
+        cpu, cpu_wavs = workflow_infer(root / "ckpt", root / "cpu", "--bf16", "--device", "cpu")
+        card_wavs = runs["--bf16 --fused"][3]
+        hop = flagship_config().generator.features.hop_length
+        check_wavs(cpu, card_wavs, hop, "bf16 card")
+        check_wavs(cpu, cpu_wavs, hop, "bf16 cpu")
+        rel = max(float(np.abs(a - b).max() / np.abs(b).max())
+                  for a, b in zip(card_wavs, cpu_wavs))
+        print(f"  --bf16 --fused wav files, card against --device cpu: equal lengths, "
+              f"max|card - cpu|/max|cpu| {rel:.3e} (rtol {BF16_WAV_RTOL})", flush=True)
+        assert rel <= BF16_WAV_RTOL, f"bf16 wav files differ between card and CPU by {rel}"
+        return {label: {"wall_s": r[0], "latency_ms": r[2]} for label, r in runs.items()}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def tf32_observation(f32_step_ms):
+    """(e) The flagship f32 train step (phase 7's batch) from the same state
+    with TF32 off and on (the script's flags only: every float32 conv and
+    product, G's and D's), the first step's logs compared, then 3 more
+    steps with TF32 on timed. TF32 is off again after."""
+    from optispeech_tpu_torch.training.state import init_train_state
+    from optispeech_tpu_torch.training.step import make_train_step
+
+    cfg = training_config()
+    batch = training_batch(cfg, cfg.data.batch_size, MAS_SHAPE[2], MAS_SHAPE[1], "cuda")
+    step, logs, walls = make_train_step(cfg), {}, []
+    try:
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
+            state = init_train_state(cfg, "cuda", seed=0)
+            logs[tf32] = {k: float(v) for k, v in step(state, batch).items()}
+            torch.cuda.synchronize()
+        for _ in range(3):
+            t0 = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    gaps = {k: abs(logs[True][k] - logs[False][k]) / max(abs(logs[False][k]), 1e-12)
+            for k in logs[False]}
+    worst = sorted(gaps, key=gaps.get, reverse=True)[:3]
+    ms = statistics.median(walls)
+    print(f"  f32 step with TF32 on: median {ms:.1f} ms over 3 steps (phase 7, TF32 off: "
+          f"{f32_step_ms:.1f} ms); first step's logs against TF32 off, largest relative gaps: "
+          + ", ".join(f"{k} {gaps[k]:.2e}" for k in worst) + " (observation; the port keeps "
+          "TF32 off)", flush=True)
+    assert all(np.isfinite(v) for v in logs[True].values())
+    return ms, {k: gaps[k] for k in worst}
+
+
+def bf16_path(fc, mas, f32_bench_ms, f32_step_ms):
+    """Phase 15; returns what the kernels line and the summary keep."""
+    launches, bench_ms, errors, state_dict = bf16_synthesis(fc, f32_bench_ms)
+    cpu_api = bf16_cross_device(state_dict)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mas_launches, walls = train_full_width(fc, mas, compute_dtype="bfloat16")
+    train_cross_device(compute_dtype="bfloat16", rtol=BF16_STEP_LOG_RTOL)
+    val_launches = val_cross_device(mas, compute_dtype="bfloat16", rtol=BF16_STEP_LOG_RTOL)
+    cold = infer_cold_runs(cpu_api)
+    del cpu_api
+    gc.collect()
+    torch.cuda.empty_cache()
+    tf32_ms, tf32_gaps = tf32_observation(f32_step_ms)
+    return dict(b1_launches_per_decode=launches, bench_ms=bench_ms, wav_errors=errors,
+                b3_launches=mas_launches, step_ms=statistics.median(walls[1:]),
+                b4_launches=val_launches, cold=cold, tf32_step_ms=tf32_ms, tf32_gaps=tf32_gaps)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1420,7 +1731,7 @@ def main() -> int:
     n_params = sum(p.numel() for p in api.generator.parameters())
     print(f"  OptiSpeech(ExperimentConfig(), en-g2p, fused decoder + trunk), seed 0: "
           f"{n_params} parameters", flush=True)
-    launches = main_path(fc, mas, api)
+    launches, f32_bench_ms = main_path(fc, mas, api)
     dim192_launches = dim_model(fc, 192)[0]
     dim_wide_launches, wide_launches, taken, n_blocks = dim_model(fc, DIM_WIDE, layers=2)
     assert taken == n_blocks, f"dim {DIM_WIDE}: {n_blocks - taken} blocks ran unfused"
@@ -1450,7 +1761,7 @@ def main() -> int:
     trainer_launches = train_entry_point(fc, mas, bare_ms)
 
     phase("11. validation cross-device (card kernels against CPU twins)")
-    val_cross_device()
+    val_cross_device(mas)
 
     phase("12. int8 kernel check (kernel against twin on the card)")
     gc.collect()
@@ -1467,6 +1778,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     workflow_launches = user_workflow(fc, mas)
 
+    phase("15. the bf16 compute path (synthesis, card against CPU, training, cold cli/infer.py, "
+          "TF32)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    bf16 = bf16_path(fc, mas, f32_bench_ms, statistics.median(bare_ms[1:]))
+
     trunk = rows["trunk"]
     kernel = {
         "name": "convnext_block_fused", "route": "cuda",
@@ -1475,6 +1792,7 @@ def main() -> int:
         "launches": launches, "launch_path": "phase 4, synthesis",
         "launches_dim192_decode": dim192_launches,
         "launches_phase_14": workflow_launches,
+        "launches_bf16_decode": bf16["b1_launches_per_decode"],
         "max_abs_err": max_abs_err["narrow"],
         "ms": trunk["ms"], "plain_ms": trunk["plain_ms"], "bound_ms": trunk["bound_ms"],
         "bound_by": trunk["bound_by"], "library_ms": trunk["library_ms"],
@@ -1505,6 +1823,7 @@ def main() -> int:
         "replaces": "optispeech_tpu/ops/pallas_mas_wavefront.py:152",
         "launches": trainer_launches["viterbi_decode"],
         "launch_path": "phase 10, the trainer (5 steps)", "launches_phase_7": mas_launches,
+        "launches_bf16_steps": bf16["b3_launches"],
         "max_abs_err": mas_err["durations"],
         "ms": mas_row["ms"], "plain_ms": mas_row["plain_ms"], "bound_ms": mas_row["bound_ms"],
         "bound_by": mas_row["bound_by"], "library_ms": None, "shape": mas_row["shape"],
@@ -1518,6 +1837,7 @@ def main() -> int:
         "replaces": "optispeech_tpu/ops/pallas_mas.py:128",
         "launches": trainer_launches["viterbi_decode_extract"],
         "launch_path": "phase 10, the trainer (1 validation of 1 batch)",
+        "launches_bf16_val": bf16["b4_launches"],
         "max_abs_err": ext_err["durations"],
         "ms": ext_row["ms"], "plain_ms": ext_row["plain_ms"], "bound_ms": ext_row["bound_ms"],
         "bound_by": ext_row["bound_by"], "library_ms": None, "shape": ext_row["shape"],
@@ -1542,6 +1862,7 @@ def main() -> int:
         "ab": {arm: ab[arm] for arm in ("xla_bf16", "fused_bf16", "fused_int8", "oracle_f32")},
         "ab_int8_rel_err_x_f32": ab_f32_err,
     }
+    print("\n  bf16: " + json.dumps(bf16))
     print(f"\n  build {build_s:.1f} s; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [kernel, wide_kernel, mas_kernel, extract_kernel, int8_kernel]}))
     print(card)

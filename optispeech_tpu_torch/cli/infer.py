@@ -3,11 +3,13 @@
 Usage:
     python -m optispeech_tpu_torch.cli.infer CKPT_DIR "Some text" OUT_DIR \
         [--d-factor F] [--p-factor F] [--e-factor F] [--language L] [--speaker S] \
-        [--no-split] [--fused] [--device cpu]
+        [--no-split] [--fused] [--bf16] [--device cpu]
 
 CKPT_DIR is the port's inference checkpoint (`config.json` + `generator.pt`:
 `OptiSpeech.save_checkpoint`, the trainer's `inference_ckpt/`, or
-`scripts/jax_ckpt_to_torch.py` applied to a JAX package checkpoint). Writes
+`scripts/jax_ckpt_to_torch.py` applied to a JAX package checkpoint).
+`--bf16` computes in bfloat16 as JAX's `--bf16` does (the weights stay
+float32); with `--fused` the fused blocks then take bf16 activations. Writes
 `gen-<i>.wav` per sentence and logs the RTF and the latency. `--device`
 defaults to the card and raises without one. `main(argv)` returns the
 `InferenceOutputs`.
@@ -19,8 +21,6 @@ from pathlib import Path
 from ..utils.pylogger import get_pylogger
 
 log = get_pylogger("optispeech_tpu_torch.infer")
-
-BF16_NOT_PORTED = "--bf16 (the bf16 compute path) is not ported yet (ROADMAP.md, queue A item 3)"
 
 
 def main(argv=None):
@@ -34,20 +34,23 @@ def main(argv=None):
     p.add_argument("--language", default=None)
     p.add_argument("--speaker", default=None)
     p.add_argument("--no-split", action="store_true", help="do not split sentences")
-    p.add_argument("--bf16", action="store_true", help="not ported yet")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 activations (the weights stay float32)")
     p.add_argument("--fused", action="store_true",
                    help="fused ConvNeXt blocks in the decoder and the vocoder trunk "
                         "(the CUDA kernel on the card, its twin on the CPU)")
     p.add_argument("--device", default=None,
                    help="torch device to run on (default: the CUDA card; `cpu` when asked)")
     args = p.parse_args(argv)
-    if args.bf16:
-        raise NotImplementedError(BF16_NOT_PORTED)
+
+    import torch
 
     from ..models.optispeech import OptiSpeech
     from ..utils.wavio import save_wav
 
-    model = OptiSpeech.load_from_checkpoint(args.checkpoint, device=args.device, fused=args.fused)
+    model = OptiSpeech.load_from_checkpoint(
+        args.checkpoint, device=args.device, fused=args.fused,
+        compute_dtype=torch.bfloat16 if args.bf16 else torch.float32)
     speaker = args.speaker
     if speaker is not None and speaker.isdigit():
         speaker = int(speaker)

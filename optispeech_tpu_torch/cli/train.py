@@ -23,14 +23,14 @@ log = get_pylogger("optispeech_tpu_torch.train")
 
 # flags of the JAX CLI whose paths the port does not have yet
 _PACKED = ("--packed-train/--packed-val (the native packed loader) is not ported yet "
-           "(ROADMAP.md, queue A item 11)")
+           "(ROADMAP.md, queue A item 9)")
 NOT_PORTED = {
     "packed_train": _PACKED,
     "packed_val": _PACKED,
     "device_cache": "--device-cache (device-resident features) is not ported yet "
-                    "(ROADMAP.md, queue A item 10)",
+                    "(ROADMAP.md, queue A item 8)",
     "distributed": "--distributed (training over several processes) is not ported yet "
-                   "(ROADMAP.md, queue A item 12)",
+                   "(ROADMAP.md, queue A item 7)",
 }
 
 

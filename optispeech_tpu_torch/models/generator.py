@@ -9,6 +9,12 @@ Port of `optispeech_tpu/models/generator.py`:
 - `synthesise_fixed`: both, with durations kept on the device and the
   output capped at `n_frames`.
 The inference methods expect eval mode, as JAX runs them deterministic.
+
+`dtype` is the compute dtype, float32 or bfloat16 (flax's `dtype=`, passed
+down the module tree as JAX passes it): the parameters stay float32 and the
+activations run in `dtype`, but for JAX's float32 islands (the alignment
+distance, MAS, the losses, the upsampling weights before their product) and
+the waveform, which leaves in float32.
 """
 
 import torch
@@ -29,48 +35,65 @@ from ..ops import (
 from .losses import fastspeech2_loss
 from .modules.alignment import AlignmentModule
 from .modules.convnext import ConvNeXtBackbone
-from .modules.core import DurationPredictor, EnergyPredictor, PitchPredictor, TextEmbedding
+from .modules.core import (
+    DurationPredictor,
+    Embedding,
+    EnergyPredictor,
+    PitchPredictor,
+    TextEmbedding,
+)
 from .vocoder.wavenext import WaveNeXt
 
 
-def make_backbone(cfg, dim):
+def compute_dtype(name: str) -> torch.dtype:
+    """The compute dtype that `train_args.compute_dtype` names: "float32" or
+    "bfloat16"."""
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    if name not in dtypes:
+        raise ValueError(f"compute_dtype {name!r}: float32 or bfloat16")
+    return dtypes[name]
+
+
+def make_backbone(cfg, dim, dtype=torch.float32):
     if cfg.kind == "convnext":
         return ConvNeXtBackbone(dim, cfg.intermediate_dim, cfg.num_layers,
                                 cfg.layer_scale_init_value, fused_pallas=cfg.fused_pallas,
-                                drop_path=cfg.drop_path)
+                                drop_path=cfg.drop_path, dtype=dtype)
     raise NotImplementedError(
-        f"backbone kind `{cfg.kind}` is not ported yet (ROADMAP.md, queue A, slice 3)"
+        f"backbone kind `{cfg.kind}` is not ported yet (ROADMAP.md, queue A item 5)"
     )
 
 
 class OptiSpeechGenerator(nn.Module):
-    def __init__(self, cfg: GeneratorConfig):
+    def __init__(self, cfg: GeneratorConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
+        self.compute_dtype = dtype
         te = cfg.text_embedding
         self.text_embedding = TextEmbedding(cfg.dim, te.n_vocab, te.padding_idx,
-                                            te.max_source_positions, te.dropout)
-        self.encoder = make_backbone(cfg.encoder, cfg.dim)
-        self.decoder = make_backbone(cfg.decoder, cfg.dim)
+                                            te.max_source_positions, te.dropout, dtype)
+        self.encoder = make_backbone(cfg.encoder, cfg.dim, dtype)
+        self.decoder = make_backbone(cfg.decoder, cfg.dim, dtype)
         dp, pp, ep = cfg.duration_predictor, cfg.pitch_predictor, cfg.energy_predictor
         self.duration_predictor = DurationPredictor(
-            cfg.dim, dp.num_layers, dp.intermediate_dim, dp.kernel_size, dp.dropout, dp.separable)
+            cfg.dim, dp.num_layers, dp.intermediate_dim, dp.kernel_size, dp.dropout, dp.separable,
+            dtype)
         self.pitch_predictor = PitchPredictor(
             cfg.dim, pp.num_layers, pp.intermediate_dim, pp.kernel_size, pp.dropout,
-            pp.embed_kernel_size, pp.separable, pp.embed_dropout)
+            pp.embed_kernel_size, pp.separable, pp.embed_dropout, dtype)
         self.energy_predictor = EnergyPredictor(
             cfg.dim, ep.num_layers, ep.intermediate_dim, ep.kernel_size, ep.dropout,
-            ep.embed_kernel_size, ep.separable, ep.embed_dropout)
-        self.alignment_module = AlignmentModule(cfg.dim, cfg.features.n_feats)
+            ep.embed_kernel_size, ep.separable, ep.embed_dropout, dtype)
+        self.alignment_module = AlignmentModule(cfg.dim, cfg.features.n_feats, dtype)
         v = cfg.vocoder
         self.vocoder = WaveNeXt(cfg.dim, v.dim, v.intermediate_dim, v.num_layers,
                                 cfg.features.n_fft, cfg.features.hop_length,
                                 fused_pallas=v.fused_pallas, f0_cond=v.f0_cond,
-                                drop_path=v.drop_path)
+                                drop_path=v.drop_path, dtype=dtype)
         if cfg.num_speakers > 1:
-            self.sid_embed = nn.Embedding(cfg.num_speakers, cfg.dim)
+            self.sid_embed = Embedding(cfg.num_speakers, cfg.dim, dtype)
         if cfg.num_languages > 1:
-            self.lid_embed = nn.Embedding(cfg.num_languages, cfg.dim)
+            self.lid_embed = Embedding(cfg.num_languages, cfg.dim, dtype)
 
     def _encode_text(self, x, input_padding_mask, sids, lids, generator=None):
         h, _ = self.text_embedding(x, generator)

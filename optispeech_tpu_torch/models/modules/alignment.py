@@ -5,6 +5,8 @@ Port of `optispeech_tpu/models/modules/alignment.py`. The squared distance
 product with no (B, T_feats, T_text, C) intermediate, as in JAX (which asks
 for `precision="highest"`; the port runs float32 products with TF32 off).
 Conv names follow the reference's torch keys (`alignment_module.t_conv1`).
+The convs run in the compute dtype (`core.py`), the distance in float32 in
+either, so the log-probs that MAS reads are float32.
 """
 
 import torch
@@ -12,19 +14,19 @@ from torch import nn
 from torch.nn import functional as F
 
 from ...ops.prior import beta_binomial_log_prior
-from .core import conv_btc
+from .core import Conv1d, conv_btc
 
 BIG_NEG = -1e9
 
 
 class AlignmentModule(nn.Module):
-    def __init__(self, adim: int, odim: int):
+    def __init__(self, adim: int, odim: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.t_conv1 = nn.Conv1d(adim, adim, 3, padding=1)
-        self.t_conv2 = nn.Conv1d(adim, adim, 1)
-        self.f_conv1 = nn.Conv1d(odim, adim, 3, padding=1)
-        self.f_conv2 = nn.Conv1d(adim, adim, 3, padding=1)
-        self.f_conv3 = nn.Conv1d(adim, adim, 1)
+        self.t_conv1 = Conv1d(adim, adim, 3, padding=1, dtype=dtype)
+        self.t_conv2 = Conv1d(adim, adim, 1, dtype=dtype)
+        self.f_conv1 = Conv1d(odim, adim, 3, padding=1, dtype=dtype)
+        self.f_conv2 = Conv1d(adim, adim, 3, padding=1, dtype=dtype)
+        self.f_conv3 = Conv1d(adim, adim, 1, dtype=dtype)
 
     def forward(self, text, feats, text_lengths, feats_lengths, x_masks=None):
         """text (B, T_text, adim), feats (B, T_feats, odim), lengths (B,),

@@ -9,16 +9,20 @@ mode the blocks run unfused, with drop path drawn from the caller's
 `torch.Generator`, as in JAX (fused only when deterministic). Submodule
 names follow the reference's torch keys (`convnext.{i}.dwconv.weight`,
 `final_layer_norm.weight`).
+
+`dtype` is the compute dtype (`core.py`). In bfloat16 the unfused block
+runs in bf16 in flax's order; the fused block takes x in bf16 and returns
+bf16, as JAX's kernel returns x's dtype, with the same parameters as in
+float32.
 """
 
 from typing import Optional
 
 import torch
 from torch import nn
-from torch.nn import functional as F
 
 from ...ops.fused_convnext import convnext_block_fused, kernel_takes, kernel_weights
-from .core import conv_btc
+from .core import Conv1d, LayerNorm, Linear, conv_btc, gelu
 
 
 def drop_path(x: torch.Tensor, drop_prob: float, generator: torch.Generator) -> torch.Tensor:
@@ -37,13 +41,14 @@ class ConvNeXtBlock(nn.Module):
     -> layer scale -> drop path -> residual."""
 
     def __init__(self, dim: int, intermediate_dim: int,
-                 layer_scale_init_value: Optional[float] = None, drop_path_rate: float = 0.0):
+                 layer_scale_init_value: Optional[float] = None, drop_path_rate: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.drop_path_rate = drop_path_rate
-        self.dwconv = nn.Conv1d(dim, dim, 7, padding=3, groups=dim)
-        self.norm = nn.LayerNorm(dim, eps=1e-6)
-        self.pwconv1 = nn.Linear(dim, intermediate_dim)
-        self.pwconv2 = nn.Linear(intermediate_dim, dim)
+        self.dwconv = Conv1d(dim, dim, 7, padding=3, groups=dim, dtype=dtype)
+        self.norm = LayerNorm(dim, 1e-6, dtype)
+        self.pwconv1 = Linear(dim, intermediate_dim, dtype=dtype)
+        self.pwconv2 = Linear(intermediate_dim, dim, dtype=dtype)
         if layer_scale_init_value is not None and layer_scale_init_value > 0:
             self.gamma = nn.Parameter(torch.full((dim,), float(layer_scale_init_value)))
         else:
@@ -56,7 +61,7 @@ class ConvNeXtBlock(nn.Module):
             *params, packed = self.fused_params()
             return convnext_block_fused(x, *params, packed=packed)
         h = conv_btc(self.dwconv, x)
-        h = self.pwconv2(F.gelu(self.pwconv1(self.norm(h)), approximate="none"))
+        h = self.pwconv2(gelu(self.pwconv1(self.norm(h))))
         if self.gamma is not None:
             h = self.gamma.to(h.dtype) * h
         if self.training and self.drop_path_rate > 0.0:
@@ -98,7 +103,7 @@ class ConvNeXtBackbone(nn.Module):
 
     def __init__(self, dim: int, intermediate_dim: int = 1024, num_layers: int = 4,
                  layer_scale_init_value: Optional[float] = None, fused_pallas: bool = False,
-                 drop_path: float = 0.0):
+                 drop_path: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         lsiv = layer_scale_init_value or 1.0 / num_layers
         if num_layers > 1:
@@ -106,9 +111,9 @@ class ConvNeXtBackbone(nn.Module):
         else:
             rates = [0.0]
         self.convnext = nn.ModuleList(
-            [ConvNeXtBlock(dim, intermediate_dim, lsiv, rate) for rate in rates]
+            [ConvNeXtBlock(dim, intermediate_dim, lsiv, rate, dtype) for rate in rates]
         )
-        self.final_layer_norm = nn.LayerNorm(dim, eps=1e-6)
+        self.final_layer_norm = LayerNorm(dim, 1e-6, dtype)
         # module-level fused default (the decoder), OR'd with the call's `fused`
         self.fused_pallas = fused_pallas
 

@@ -5,6 +5,8 @@ Port of `optispeech_tpu/models/optispeech.py`. Inference runs in two stages
 as in JAX: token-rate `encode` at a text bucket, one host sync that reads the
 predicted frame count and picks the mel bucket, then frame-rate `decode`.
 `synthesise_on_device` runs both with a fixed frame cap and no sync.
+`compute_dtype=torch.bfloat16` runs the generator in bf16, as JAX's
+`compute_dtype=jnp.bfloat16` does; the weights and checkpoints stay float32.
 """
 
 import dataclasses
@@ -35,10 +37,12 @@ def with_fused_blocks(cfg: ExperimentConfig) -> ExperimentConfig:
 
 class OptiSpeech:
     def __init__(self, cfg: ExperimentConfig, seed: int = 0, device=None,
-                 speakers: Optional[list[str]] = None, state_dict: Optional[dict] = None):
+                 speakers: Optional[list[str]] = None, state_dict: Optional[dict] = None,
+                 compute_dtype: torch.dtype = torch.float32):
         """Build the model on `device` (default: the card; raises when there
-        is none). Weights come from `state_dict` when given, else from a
-        seeded initialisation with flax's distributions."""
+        is none), computing in `compute_dtype` (float32 or bfloat16). Weights
+        come from `state_dict` when given, else from a seeded initialisation
+        with flax's distributions."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.inference_args: InferenceArgs = cfg.inference_args
@@ -50,7 +54,7 @@ class OptiSpeech:
         self.text_bucket = cfg.data.text_bucket_size
         self.mel_bucket = cfg.data.mel_bucket_size
 
-        generator = OptiSpeechGenerator(cfg.generator)
+        generator = OptiSpeechGenerator(cfg.generator, dtype=compute_dtype)
         if state_dict is None:
             init_like_flax(generator, torch.Generator().manual_seed(seed))
         else:
@@ -59,12 +63,14 @@ class OptiSpeech:
 
     @classmethod
     def load_from_jax_params(cls, cfg: ExperimentConfig, params_np: dict, device=None,
-                             speakers: Optional[list[str]] = None) -> "OptiSpeech":
+                             speakers: Optional[list[str]] = None,
+                             compute_dtype: torch.dtype = torch.float32) -> "OptiSpeech":
         """Build from a JAX generator param tree given as nested numpy dicts."""
         from ..compat.from_jax import state_dict_from_jax_params
 
         return cls(cfg, device=device, speakers=speakers,
-                   state_dict=state_dict_from_jax_params(params_np, cfg.generator))
+                   state_dict=state_dict_from_jax_params(params_np, cfg.generator),
+                   compute_dtype=compute_dtype)
 
     def save_checkpoint(self, path: str):
         """Write an inference checkpoint (`config.json` with the config and
@@ -75,7 +81,8 @@ class OptiSpeech:
                                   speakers=self.speakers)
 
     @classmethod
-    def load_from_checkpoint(cls, path: str, device=None, fused: bool = False) -> "OptiSpeech":
+    def load_from_checkpoint(cls, path: str, device=None, fused: bool = False,
+                             compute_dtype: torch.dtype = torch.float32) -> "OptiSpeech":
         """Build from an inference checkpoint (`save_checkpoint`,
         `save_inference_checkpoint`);
         `fused=True` routes the decoder and the vocoder trunk through the
@@ -86,7 +93,7 @@ class OptiSpeech:
         if fused:
             cfg = with_fused_blocks(cfg)
         return cls(cfg, device=device, speakers=meta.get("speakers") or [],
-                   state_dict=state_dict)
+                   state_dict=state_dict, compute_dtype=compute_dtype)
 
     # ------------------------------------------------------------------
     def _tensors(self, inputs: InferenceInputs):

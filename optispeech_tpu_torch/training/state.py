@@ -21,7 +21,7 @@ from torch import nn
 
 from ..config import ExperimentConfig
 from ..models.discriminator import VocosDiscriminator, init_discriminator
-from ..models.generator import OptiSpeechGenerator
+from ..models.generator import OptiSpeechGenerator, compute_dtype
 from ..models.init import init_like_flax
 from ..utils.device import resolve_device
 from .schedules import make_schedule
@@ -121,8 +121,11 @@ class TrainState:
 def init_train_state(cfg: ExperimentConfig, device=None, seed: int = 0) -> TrainState:
     """Fresh G and D on `device` (default: the card; raises when there is
     none) from `seed` (flax's distributions; D's weight-norm scales set to
-    ||v||), and the step RNG on the same device."""
-    generator = OptiSpeechGenerator(cfg.generator)
+    ||v||), and the step RNG on the same device. G computes in
+    `train_args.compute_dtype`, D in float32, as in JAX; both keep float32
+    parameters."""
+    generator = OptiSpeechGenerator(cfg.generator,
+                                    dtype=compute_dtype(cfg.train_args.compute_dtype))
     init_like_flax(generator, torch.Generator().manual_seed(seed))
     discriminator = VocosDiscriminator(cfg.discriminator, cfg.generator.features)
     init_discriminator(discriminator, torch.Generator().manual_seed(seed + 1))

@@ -19,6 +19,10 @@ full `wav` (starts drawn from the state's RNG). The log keys are JAX's.
 The validation step runs G's forward with the duration extraction kernel
 (no gradient) and D's mel + MR-STFT losses, under `torch.no_grad()` with
 both in eval mode.
+
+With G in bf16 (`train_args.compute_dtype: bfloat16`) the steps are the
+same: G returns `wav_hat` in float32, so D, which computes in float32, and
+the losses see float32, as in JAX.
 """
 
 import torch

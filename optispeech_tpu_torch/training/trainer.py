@@ -113,12 +113,9 @@ class Trainer:
                  debug_nans: bool = False):
         """`device`: the card by default (raises when there is none), "cpu"
         when asked. `debug_nans` turns on autograd's anomaly detection."""
-        if cfg.train_args.compute_dtype == "bfloat16":
-            raise NotImplementedError("compute_dtype bfloat16: the port has no bf16 compute "
-                                      "path yet (ROADMAP.md, queue A)")
         if cfg.num_devices not in (None, 1):
             raise NotImplementedError(f"num_devices={cfg.num_devices}: training on several "
-                                      "devices is not ported yet (ROADMAP.md, queue A item 12)")
+                                      "devices is not ported yet (ROADMAP.md, queue A item 7)")
         self.cfg = cfg
         self.out_dir = out_dir
         os.makedirs(out_dir, exist_ok=True)

@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's synthesis time goes on the card.
 
-    python3 scripts/port_profile.py
+    python3 scripts/port_profile.py [--bf16]
 
 Builds the flagship model as chip_smoke.py does (random weights, seed 0,
 fused decoder and trunk), runs `synthesise_on_device` at bench.py's shape
 under torch.profiler, and prints device time per kernel, the share of the
 fused ConvNeXt kernel, the device-busy share of the wall time, and the same
 call timed with the fused blocks off (cuBLAS/cuDNN unfused blocks) for
-comparison. Needs a card.
+comparison. `--bf16` runs the model with bf16 activations
+(`compute_dtype=torch.bfloat16`). Needs a card.
 """
 
+import argparse
 import statistics
 import sys
 import time
@@ -38,7 +40,10 @@ def wall_ms(api, inputs):
     return statistics.median(walls)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--bf16", action="store_true", help="bf16 activations")
+    dtype = torch.bfloat16 if p.parse_args(argv).bf16 else torch.float32
     if not torch.cuda.is_available():
         print("port_profile: no CUDA device is available", file=sys.stderr)
         return 2
@@ -50,9 +55,9 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(card_line())
+    print(card_line(), f"; activations {dtype}")
     cfg = flagship_config()
-    api = OptiSpeech(cfg, seed=0, device="cuda")
+    api = OptiSpeech(cfg, seed=0, device="cuda", compute_dtype=dtype)
     inputs = bench_inputs()
     n = BENCH["n_frames"]
     fused_ms = wall_ms(api, inputs)
@@ -82,8 +87,9 @@ def main() -> int:
     unfused_cfg = dataclasses.replace(cfg, generator=dataclasses.replace(
         g, decoder=dataclasses.replace(g.decoder, fused_pallas=False),
         vocoder=dataclasses.replace(g.vocoder, fused_pallas=False)))
-    # float32 blocks through cuDNN and cuBLAS (TF32 off), same weights
-    unfused = OptiSpeech(unfused_cfg, device="cuda", state_dict=api.generator.state_dict())
+    # the blocks through cuDNN and cuBLAS (TF32 off), same weights
+    unfused = OptiSpeech(unfused_cfg, device="cuda", state_dict=api.generator.state_dict(),
+                         compute_dtype=dtype)
     unfused_ms = wall_ms(unfused, inputs)
     again_ms = wall_ms(api, inputs)
     print(f"\nsynthesise_on_device wall, median of {CALLS}: fused {fused_ms:.2f} ms, "

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's training step spends time and memory on the card.
 
-    python3 scripts/port_train_profile.py
+    python3 scripts/port_train_profile.py [--bf16]
 
 Runs the GAN train step of the flagship config (random weights, seed 0,
 pretraining_steps=0 so that D trains) on chip_smoke.py's phase-7 batch
@@ -15,9 +15,11 @@ synthetic corpus for 4 steps with the 4th traced (`profile_steps`; the
 first three each meet a new batch shape or an epoch's first batch): the
 host spans `trainer/segment` and `trainer/to_device`, the traced window's
 wall and the device's busy share of it, and the collation of one batch,
-which the loader runs on its prefetch thread. Needs a card.
+which the loader runs on its prefetch thread. `--bf16` runs both with the
+generator in bf16 (`train_args.compute_dtype: bfloat16`). Needs a card.
 """
 
+import argparse
 import dataclasses
 import json
 import shutil
@@ -43,7 +45,10 @@ STEPS = 3
 TRACED = (3, 3)  # 0-based steps of `fit` under the profiler
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--bf16", action="store_true", help="the generator in bf16")
+    dtype = "bfloat16" if p.parse_args(argv).bf16 else "float32"
     if not torch.cuda.is_available():
         print("port_train_profile: no CUDA device is available", file=sys.stderr)
         return 2
@@ -54,8 +59,8 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(card_line())
-    cfg = training_config()
+    print(card_line(), f"; G in {dtype}")
+    cfg = training_config(compute_dtype=dtype)
     state = init_train_state(cfg, "cuda", seed=0)
     b, t_feats, t_text = cfg.data.batch_size, MAS_SHAPE[1], MAS_SHAPE[2]
     batch = training_batch(cfg, b, t_text, t_feats, "cuda")
@@ -109,7 +114,7 @@ def main() -> int:
         print(f"{e.key[:80]:80s} {e.count:6d} {ms:9.3f} {ms / device_ms:7.1%}")
     del state, batch
     torch.cuda.empty_cache()
-    return trainer_loop()
+    return trainer_loop(dtype)
 
 
 def busy_ms(intervals):
@@ -122,10 +127,10 @@ def busy_ms(intervals):
     return total
 
 
-def trainer_loop() -> int:
+def trainer_loop(dtype) -> int:
     from optispeech_tpu_torch.training.trainer import Trainer
 
-    cfg = training_config()
+    cfg = training_config(compute_dtype=dtype)
     cfg = dataclasses.replace(cfg, log_every_n_steps=1, val_every_n_steps=10 ** 9,
                               ckpt_every_n_steps=10 ** 9)
     train, _ = trainer_loaders(cfg)

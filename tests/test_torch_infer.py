@@ -10,7 +10,10 @@
   `gen-*.wav` files read back agree within 1e-4 plus one int16 step
   (the files hold round-toward-zero int16 codes, so a 1e-4 difference can
   move a code by one).
-- `--bf16` raises `NotImplementedError`; without a card and without
+- `--bf16` and `--bf16 --fused` against JAX's `--bf16` (JAX's fused
+  blocks run the Pallas kernel in interpret mode): the same wav lengths and
+  the wavs within `BF16_WAV_RTOL` of max|wav| (tests/test_torch_bf16.py
+  says why bf16 is held to a tolerance). Without a card and without
   `--device` the CLI raises rather than fall back to the CPU.
 """
 
@@ -29,6 +32,7 @@ torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
 ATOL = 1e-4
 WAV_ATOL = ATOL + 1.0 / 32767.0  # plus one int16 step of the written files
+BF16_WAV_RTOL = 3e-2  # tests/test_torch_bf16.py's WAV_RTOL
 TEXT = "The birch canoe slid on the smooth planks. Glue the sheet to the dark blue background."
 SPEAKERS = ["ann", "bob", "cy"]
 CONFIGS = {
@@ -154,13 +158,30 @@ def test_infer_clis_agree(checkpoints, tmp_path, case):
     assert out.rtf > 0 and out.latency > 0
 
 
-def test_infer_cli_bf16_is_not_ported(checkpoints, tmp_path):
-    from optispeech_tpu_torch.cli import infer
+@pytest.mark.parametrize("fused", [False, True], ids=["bf16", "bf16-fused"])
+def test_infer_cli_bf16_matches_jax(checkpoints, tmp_path, monkeypatch, fused):
+    import optispeech_tpu.ops.pallas_convnext as pc
+    from optispeech_tpu.cli import infer as jax_infer
+    from optispeech_tpu_torch.cli import infer as torch_infer
 
-    _, _, _, converted = checkpoints
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        infer.main([str(converted), TEXT, str(tmp_path), "--device", "cpu", "--bf16"])
-    assert not list(tmp_path.iterdir())
+    name, _, jax_ckpt, converted = checkpoints
+    flags = ["--bf16", "--fused"] if fused else ["--bf16"]
+    orig = pc.convnext_block_fused
+    monkeypatch.setattr(pc, "convnext_block_fused",
+                        lambda *a, **kw: orig(*a, interpret=True, **kw))
+    monkeypatch.setattr(pc, "fused_supported", lambda: True)
+    jax_infer.main([str(jax_ckpt), TEXT, str(tmp_path / "jax"), *flags])
+    out = torch_infer.main([str(converted), TEXT, str(tmp_path / "torch"), "--device", "cpu",
+                            *flags])
+    assert out.wav.dtype == np.float32
+    names, want = _read_wavs(tmp_path / "jax")
+    got_names, got = _read_wavs(tmp_path / "torch")
+    assert got_names == names == ["gen-1.wav", "gen-2.wav"]
+    for (g, _), (w, _), length in zip(got, want, out.wav_lengths):
+        assert len(g) == len(w) == length
+        rel = np.abs(g - w).max() / np.abs(w).max()
+        print(f"{name} {flags}: max|port - jax| / max|jax| {rel:.3e}")
+        assert rel <= BF16_WAV_RTOL
 
 
 def test_infer_cli_needs_a_device_when_cuda_is_absent(checkpoints, tmp_path, monkeypatch):

@@ -248,12 +248,33 @@ def test_wire_mel_dtype_bfloat16(tmp_path):
     assert t.fit(train, None, max_steps=1).step == 1
 
 
+def test_trainer_fits_validates_and_resumes_in_bfloat16(tmp_path):
+    """`train_args.compute_dtype: bfloat16`: G computes in bf16 (D in
+    float32), 2 steps with a validation and a checkpoint, float32 parameters
+    and optimiser state throughout, and a resume that takes a third step."""
+    cfg = tiny_config(train_args=dataclasses.replace(tiny_config().train_args,
+                                                     compute_dtype="bfloat16"),
+                      val_every_n_steps=2, ckpt_every_n_steps=2, log_every_n_steps=1)
+    t = trainer(cfg, tmp_path / "run")
+    train, val = loaders(cfg)
+    state = t.fit(train, val, max_steps=2)
+    assert state.step == 2 and state.generator.compute_dtype == torch.bfloat16
+    assert {p.dtype for p in state.generator.parameters()} == {torch.float32}
+    moments = [v for s in state.g_opt.adamw.state.values() for v in s.values()
+               if torch.is_tensor(v) and v.dim() > 0]
+    assert moments and {v.dtype for v in moments} == {torch.float32}
+    rows = [json.loads(line) for line in (tmp_path / "run" / "metrics.jsonl").read_text()
+            .splitlines()]
+    assert all(np.isfinite(v) for r in rows for v in r.values())
+    assert any("total_loss/val_total" in r for r in rows)
+    assert TrainCheckpointManager(str(tmp_path / "run" / "checkpoints")).latest_step() == 2
+    resumed = trainer(cfg, tmp_path / "run").fit(train, val, max_steps=3)
+    assert resumed.step == 3 and resumed.generator.compute_dtype == torch.bfloat16
+
+
 def test_unported_options_raise(tmp_path, monkeypatch):
     cfg = tiny_config()
-    with pytest.raises(NotImplementedError, match="bf16"):
-        trainer(tiny_config(train_args=dataclasses.replace(cfg.train_args,
-                                                           compute_dtype="bfloat16")), tmp_path)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="queue A item 7"):
         trainer(tiny_config(num_devices=2), tmp_path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -287,6 +308,31 @@ def test_cli_main_trains_and_exports(tmp_path):
     assert (out / "inference_ckpt" / "config.json").exists()
     rows = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
     assert any("total_loss/val_total" in r for r in rows)
+
+
+def test_cli_main_trains_in_bfloat16(tmp_path):
+    """The `train_args.compute_dtype=bfloat16` override end to end: 2 steps
+    with a validation, the checkpoint and the inference export, whose
+    weights are float32 and synthesise in bf16."""
+    from optispeech_tpu_torch.cli.train import main
+    from optispeech_tpu_torch.models.optispeech import OptiSpeech
+    from optispeech_tpu_torch.values import InferenceInputs
+
+    out = tmp_path / "cli"
+    assert main(["--synthetic", "--device", "cpu", "--max-steps", "2", "--out-dir", str(out),
+                 "--no-print-config", *CLI_OVERRIDES,
+                 "train_args.compute_dtype=bfloat16"]) == 0
+    assert TrainCheckpointManager(str(out / "checkpoints")).latest_step() == 2
+    rows = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+    assert any("total_loss/val_total" in r for r in rows)
+    model = OptiSpeech.load_from_checkpoint(str(out / "inference_ckpt"), device="cpu",
+                                            compute_dtype=torch.bfloat16)
+    assert model.cfg.train_args.compute_dtype == "bfloat16"
+    assert {p.dtype for p in model.generator.parameters()} == {torch.float32}
+    inputs = InferenceInputs.from_ids_and_lengths([[5, 9, 12, 7, 3]], [5], clean_text="",
+                                                  d_factor=1.0, p_factor=1.0, e_factor=1.0)
+    wav = model.synthesise_on_device(inputs, n_frames=64)["wav"]
+    assert wav.dtype == torch.float32 and torch.isfinite(wav).all()
 
 
 def test_cli_debug_harnesses(tmp_path):

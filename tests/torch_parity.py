@@ -81,9 +81,11 @@ def no_dropout(cfg):
     return dataclasses.replace(cfg, generator=g)
 
 
-def train_setup(cfg, seed=0):
+def train_setup(cfg, seed=0, bf16=False):
     """JAX generator and discriminator modules with a TrainState from `seed`,
-    and the port's TrainState on the CPU holding the same weights."""
+    and the port's TrainState on the CPU holding the same weights. With
+    `bf16` both generators compute in bfloat16 (the discriminators stay
+    float32), as `train_args.compute_dtype: bfloat16` builds them."""
     from optispeech_tpu.models.discriminator.vocos import VocosDiscriminator as JaxDisc
     from optispeech_tpu.models.generator import OptiSpeechGenerator as JaxGen
     from optispeech_tpu.training.state import init_train_state
@@ -95,10 +97,11 @@ def train_setup(cfg, seed=0):
     from optispeech_tpu_torch.models.generator import OptiSpeechGenerator
     from optispeech_tpu_torch.training.state import TrainState
 
-    jgen, jdisc = JaxGen(cfg.generator), JaxDisc(cfg.discriminator, cfg.generator.features)
+    jgen = JaxGen(cfg.generator, dtype=jax.numpy.bfloat16 if bf16 else jax.numpy.float32)
+    jdisc = JaxDisc(cfg.discriminator, cfg.generator.features)
     jstate = init_train_state(cfg, jgen, jdisc, jax.random.PRNGKey(seed))
     tcfg = to_torch_config(cfg)
-    gen = OptiSpeechGenerator(tcfg.generator)
+    gen = OptiSpeechGenerator(tcfg.generator, dtype=torch.bfloat16 if bf16 else torch.float32)
     gen.load_state_dict(state_dict_from_jax_params(params_np(jstate.g_params), tcfg.generator))
     disc = VocosDiscriminator(tcfg.discriminator, tcfg.generator.features)
     disc.load_state_dict(discriminator_state_dict_from_jax_params(params_np(jstate.d_params),
