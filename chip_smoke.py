@@ -130,14 +130,39 @@ Phases, each of which fails the run on any error:
      time, latency, B1 launches, and the bf16 wav files against
      `--device cpu`; (e) phase 7's f32 step from the same state with TF32
      on and off, set by this script only: the logs' gaps and the time (an
-     observation: the port keeps TF32 off).
+     observation: the port keeps TF32 off);
+ 16. the serving runtime, in a temporary directory outside the checkout
+     that is deleted after: (a) phase 4's weights saved with
+     `OptiSpeech.save_checkpoint`, loaded by `cli/serve.py::load_model`
+     (fused, on the card), `prewarm(max_batch=32)` (each key's seconds) and
+     `serve(..., port=0)` on a thread; (b) /health, /info, then 32
+     concurrent /synthesise requests of one or two Harvard sentences, 8 in
+     each of the four formats: every answer 200 and not truncated, fewer
+     batches than requests, B1 12 times per `synthesise_on_device` call
+     (the calls counted by wrapping the method, cap-doubling retries
+     included); latency p50 / p95, batches, rows, audio seconds per wall
+     second and the batcher's wall by stage (`Batcher.stage_seconds`);
+     (c) the smallest merged batch of (b) at its frame cap on the card and
+     through the CPU model (B1's twin), with pcm16 and with µ-law:
+     durations equal, pcm16 within WAV_ATOL plus one step, codes within one
+     on fewer than 1% of samples, the packed rows equal the code rows'
+     prefixes; (d) /stream of one long sentence (its d_factor set for
+     about 760 frames, at least 3 windows) in pcm16 and µ-law with the
+     batcher idle: B1 12 times per window, the pcm16 within 64 steps of
+     /synthesise's, the µ-law above 25 dB SNR against it, time to the
+     first chunk; (e) `load_model(bf16=True)` behind a second server, one
+     /synthesise and one /stream of ten sentences: B1 12 times a call and
+     a window, on bf16 x, and each sentence whose durations equal the f32
+     model's within BF16_WAV_RTOL of the f32 server's answer.
 The kernels build in parallel (one nvcc per source, five sources and the probe).
 Prints the kernels' JSON line and the card line, and as its last line
 {"ok": true, "device": {...}}. Without a card, or without the repo beside
 it, it exits non-zero and prints no result.
 """
 
+import base64
 import gc
+import io
 import json
 import re
 import statistics
@@ -1682,6 +1707,451 @@ def bf16_path(fc, mas, f32_bench_ms, f32_step_ms):
                 b4_launches=val_launches, cold=cold, tf32_step_ms=tf32_ms, tf32_gaps=tf32_gaps)
 
 
+# -- phase 16: the serving runtime ------------------------------------------------
+
+# (b) 32 concurrent requests, each of one or two Harvard sentences (lists 1-3),
+# 8 in each format
+HARVARD = [
+    "The birch canoe slid on the smooth planks.", "Glue the sheet to the dark blue background.",
+    "It's easy to tell the depth of a well.", "These days a chicken leg is a rare dish.",
+    "Rice is often served in round bowls.", "The juice of lemons makes fine punch.",
+    "The box was thrown beside the parked truck.", "The hogs were fed chopped corn and garbage.",
+    "Four hours of steady work faced us.", "A large size in stockings is hard to sell.",
+    "The boy was there when the sun rose.", "A rod is used to catch pink salmon.",
+    "The source of the huge river is the clear spring.",
+    "Kick the ball straight and follow through.",
+    "Help the woman get back to her feet.", "A pot of tea helps to pass the evening.",
+    "Smoky fires lack flame and heat.", "The soft cushion broke the man's fall.",
+    "The salt breeze came across from the sea.", "The girl at the booth sold fifty bonds.",
+    "The small pup gnawed a hole in the sock.", "The fish twisted and turned on the bent hook.",
+    "Press the pants and sew a button on the vest.", "The swan dive was far short of perfect.",
+    "The beauty of the view stunned the young boy.", "Two blue fish swam in the tank.",
+    "Her purse was full of useless trash.", "The colt reared and threw the tall rider.",
+    "It snowed, rained, and hailed the same morning.", "Read verse out loud for pleasure.",
+    "Hoist the load to your left shoulder.", "Take the winding path to reach the lake.",
+]
+SERVE_REQUESTS = [" ".join(HARVARD[i:i + 1 + i % 2]) for i in range(32)]  # odd i: two sentences
+SERVE_FORMATS = ("wav", "pcm16", "mulaw", "json")
+SERVE_MAX_BATCH = 32
+B1_PER_CALL = 12  # B1 launches per synthesise_on_device call or stream window: 4 decoder + 8 trunk
+# (d) one long sentence, its d_factor set so that it fills STREAM_FRAMES frames
+# (at least 3 windows of 256, under the server's frame cap of 1024)
+STREAM_TEXT = ("A large size in stockings is hard to sell, so the girl at the booth "
+               "sold fifty bonds while the small pup gnawed a hole in the sock and the "
+               "salt breeze came across from the sea.")
+STREAM_FRAMES, STREAM_WINDOWS, STREAM_CHUNK = 760, 3, 256  # the server's default window
+STREAM_PCM16_STEPS = 64  # the stream against the batch path, tests/test_serve.py:206
+MULAW_SNR_DB = 25.0  # tests/test_serve.py's served µ-law bound
+MULAW_CODE_SHARE = 0.01  # codes within one, on fewer than 1% of samples (tests/test_mulaw.py:35-36)
+# (e) one request of ten sentences: the bf16 encoder moves a duration of
+# ~1% of the tokens against the f32 one (phase 15(a): 9.25% at d_factor 8),
+# so a sentence keeps all of its f32 durations only now and then, and the
+# wavs compare row by row on the sentences that do, as phase 15(b) does
+SERVE_BF16_TEXT = " ".join(HARVARD[:10])
+
+
+def http_post(base, payload, path="/synthesise"):
+    """(status, headers, body, seconds); an HTTP error is an answer, not an exception."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"}, method="POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            status, headers, body = resp.status, dict(resp.headers), resp.read()
+    except urllib.error.HTTPError as e:
+        status, headers, body = e.code, dict(e.headers), e.read()
+    return status, headers, body, time.perf_counter() - t0
+
+
+def http_get(base, path):
+    import urllib.request
+
+    with urllib.request.urlopen(base + path, timeout=60) as r:
+        assert r.status == 200, f"GET {path}: {r.status}"
+        return json.load(r)
+
+
+def http_stream(port, payload):
+    """POST /stream, reading the transfer chunks one by one. Returns the
+    headers, the chunks, the seconds to the first chunk and in all."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", "/stream", json.dumps(payload).encode(),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        assert resp.status == 200, f"/stream answered {resp.status}: {resp.read()[:500]!r}"
+        chunks, first = [], None
+        while True:
+            size = int(resp.fp.readline().strip(), 16)
+            if size == 0:
+                assert resp.fp.readline() == b"\r\n", "/stream: bad end of the chunked body"
+                break
+            chunks.append(resp.fp.read(size))
+            assert len(chunks[-1]) == size and resp.fp.read(2) == b"\r\n", "/stream: bad chunk"
+            first = first or time.perf_counter() - t0
+        return dict(resp.headers), chunks, first, time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def served_audio(fmt, headers, body, sample_rate):
+    """The answer's samples: int16 for wav, pcm16 and json, uint8 codes for
+    µ-law. Fails on a truncated answer."""
+    from scipy.io import wavfile
+
+    if fmt == "json":
+        obj = json.loads(body)
+        assert obj["truncated"] is False, "a json answer was truncated"
+        assert obj["sample_rate"] == sample_rate
+        return np.frombuffer(base64.b64decode(obj["pcm16_b64"]), "<i2")
+    assert "X-Truncated" not in headers, f"a {fmt} answer was truncated"
+    if fmt == "wav":
+        assert headers["Content-Type"] == "audio/wav"
+        sr, data = wavfile.read(io.BytesIO(body))
+        assert sr == sample_rate and data.dtype == np.int16
+        return data
+    assert int(headers["X-Sample-Rate"]) == sample_rate
+    if fmt == "mulaw":
+        assert headers["X-Encoding"] == "mulaw"
+        return np.frombuffer(body, np.uint8)
+    return np.frombuffer(body, "<i2")
+
+
+def start_server(serve, model, **kw):
+    import threading
+
+    httpd = serve.serve(model, host="127.0.0.1", port=0, **kw)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    return httpd, thread, f"http://127.0.0.1:{httpd.server_address[1]}"
+
+
+def stop_server(httpd, thread):
+    httpd.shutdown()
+    httpd.server_close()
+    thread.join(60)
+    assert not thread.is_alive(), "the server thread did not stop"
+    assert httpd.batcher._thread.is_alive(), "the batcher thread died"
+
+
+def counted_calls(model):
+    """Wrap `model.synthesise_on_device` (the batcher's call, cap-doubling
+    retries included) to record each call's inputs, frame cap and wire;
+    returns the record and the unwrapped method."""
+    calls, original = [], model.synthesise_on_device
+
+    def counted(inputs, n_frames, pcm16=False, mulaw=False):
+        calls.append((inputs, n_frames, "mulaw" if mulaw else "pcm16"))
+        return original(inputs, n_frames, pcm16=pcm16, mulaw=mulaw)
+
+    model.synthesise_on_device = counted
+    return calls, original
+
+
+def codes_agree(got, ref):
+    """(max |code difference|, share of differing codes)."""
+    d = np.abs(np.asarray(got).astype(int) - np.asarray(ref).astype(int))
+    return int(d.max()), float((d != 0).mean())
+
+
+def snr_db(ref, got):
+    return 10 * np.log10(float((ref ** 2).mean()) / max(float(((got - ref) ** 2).mean()), 1e-12))
+
+
+def serving_runtime(fc):
+    """Phase 16. In a temporary directory, deleted after. Returns what the
+    kernels line and the summary keep."""
+    import shutil
+    import tempfile
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
+    try:
+        return _serving_runtime(fc, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _serving_runtime(fc, root):
+    from optispeech_tpu_torch.cli import serve
+    from optispeech_tpu_torch.models.optispeech import OptiSpeech
+
+    t_phase = time.perf_counter()
+    # (a) phase 4's weights through the user's entry points
+    ckpt = str(root / "flagship")
+    OptiSpeech(flagship_config(), seed=0, device="cpu").save_checkpoint(ckpt)
+    model = serve.load_model(ckpt)
+    gen = model.generator
+    assert model.device.type == "cuda" and gen.decoder.fused_pallas and gen.vocoder.fused_pallas
+    t0 = time.perf_counter()
+    warm = serve.prewarm(model, max_batch=SERVE_MAX_BATCH)
+    print(f"  (a) load_model (fused, cuda); prewarm(max_batch={SERVE_MAX_BATCH}) in "
+          f"{time.perf_counter() - t0:.2f} s: " + ", ".join(f"{k} {v}" for k, v in warm.items()),
+          flush=True)
+    assert list(warm) == [f"b{n}_{w}" for n in (1, 2, 4, 8, 16, 32) for w in ("pcm16", "mulaw")]
+    calls, synthesise = counted_calls(model)
+    httpd, thread, base = start_server(serve, model, max_batch=SERVE_MAX_BATCH)
+    try:
+        out = serving_batches(fc, model, httpd, base, calls)
+        out["card_cpu"] = serving_card_against_cpu(ckpt, calls, synthesise)
+        out["stream"] = serving_stream(fc, model, httpd, base)
+        out["bf16"] = serving_bf16(fc, serve, ckpt, base, synthesise)
+    finally:
+        stop_server(httpd, thread)
+    out["prewarm_s"] = warm
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 16 took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def serving_batches(fc, model, httpd, base, calls):
+    """(b) /health, /info, then 32 concurrent /synthesise requests in the
+    four formats: every answer 200 and whole, fewer batches than requests,
+    B1 12 times per synthesise_on_device call."""
+    import threading
+
+    health, info = http_get(base, "/health"), http_get(base, "/info")
+    print(f"  (b) /health {health}; /info {info}", flush=True)
+    assert health["status"] == "ok" and info["sample_rate"] == model.sample_rate
+    assert info["max_batch"] == SERVE_MAX_BATCH
+    batcher = httpd.batcher
+    b0, r0, s0 = batcher.batches_run, batcher.rows_synthesised, dict(batcher.stage_seconds)
+    fc.convnext_block_fused.launches = 0
+    calls.clear()
+    payloads = [{"text": text, "format": SERVE_FORMATS[i % 4]}
+                for i, text in enumerate(SERVE_REQUESTS)]
+    answers, errors = [None] * len(payloads), []
+    start = threading.Barrier(len(payloads) + 1)
+
+    def client(i):
+        try:
+            start.wait()
+            answers[i] = http_post(base, payloads[i])
+        except Exception as e:  # reported below: the run fails on it
+            errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(payloads))]
+    for t in threads:
+        t.start()
+    start.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(300)
+    wall = time.perf_counter() - t0
+    launches = fc.convnext_block_fused.launches
+    assert not errors and not any(t.is_alive() for t in threads), errors
+    bad = [(i, a[0], a[2][:200]) for i, a in enumerate(answers) if a[0] != 200]
+    assert not bad, f"non-200 answers: {bad}"
+    audio_s, hop = 0.0, model.hop_length
+    for p, (_, headers, body, _) in zip(payloads, answers):
+        samples = served_audio(p["format"], headers, body, model.sample_rate)
+        assert len(samples) > 0 and len(samples) % hop == 0
+        audio_s += len(samples) / model.sample_rate
+    batches, rows = batcher.batches_run - b0, batcher.rows_synthesised - r0
+    stages = {k: batcher.stage_seconds[k] - s0[k] for k in s0}
+    busy = sum(stages.values())
+    lat = sorted(a[3] * 1e3 for a in answers)
+    p50, p95 = float(np.percentile(lat, 50)), float(np.percentile(lat, 95))
+    wires = sorted({w for _, _, w in calls})
+    t0 = time.perf_counter()  # the handlers' text front end, on one thread
+    for p in payloads:
+        model.prepare_input(p["text"])
+    front_ms = (time.perf_counter() - t0) * 1e3
+    print(f"  {len(payloads)} concurrent requests (formats {SERVE_FORMATS} x 8): all 200, none "
+          f"truncated; {batches} batches, "
+          f"{rows} rows, {len(calls)} synthesise_on_device calls (frame caps "
+          f"{[n for _, n, _ in calls]}, wires {wires}), B1 launches {launches}", flush=True)
+    print(f"  latency p50 {p50:.1f} ms, p95 {p95:.1f} ms (client wall per request); "
+          f"{audio_s:.2f} s of audio in {wall:.3f} s of wall: {audio_s / wall:.1f} s of audio "
+          f"per wall second", flush=True)
+    print("  batcher wall by stage: " + ", ".join(
+        f"{k} {v * 1e3:.1f} ms ({v / busy:.1%})" for k, v in stages.items())
+        + f"; synthesise_on_device's share {stages['synthesise'] / busy:.1%}; the batcher "
+        f"busy {busy * 1e3:.1f} ms of the {wall * 1e3:.1f} ms wall; prepare_input of the 32 "
+        f"texts on one thread {front_ms:.1f} ms (the handlers run it under one GIL)", flush=True)
+    assert batches < len(payloads), f"{batches} batches for {len(payloads)} requests"
+    assert launches == B1_PER_CALL * len(calls), (
+        f"expected {B1_PER_CALL * len(calls)} B1 launches for {len(calls)} calls, got {launches}")
+    return dict(requests=len(payloads), batches=batches, rows=rows, calls=len(calls),
+                b1_launches=launches, latency_p50_ms=p50, latency_p95_ms=p95,
+                audio_s_per_wall_s=audio_s / wall, stage_ms={k: v * 1e3 for k, v in
+                                                             stages.items()},
+                synthesise_share=stages["synthesise"] / busy, batcher_busy_ms=busy * 1e3,
+                wall_ms=wall * 1e3, prepare_input_ms=front_ms)
+
+
+def serving_card_against_cpu(ckpt, calls, synthesise):
+    """(c) The smallest merged batch of (b), at its frame cap, on the card
+    and through the CPU model (B1's twin), once with pcm16 and once with
+    µ-law: durations equal, pcm16 within WAV_ATOL plus one step, codes
+    within one on fewer than 1% of the served samples; the card's packed
+    rows equal its code rows' prefixes."""
+    from optispeech_tpu_torch.cli import serve
+
+    inputs, n_frames, _ = min(calls, key=lambda c: c[0].x.shape[0] * c[1])
+    cpu = serve.load_model(ckpt, device="cpu")
+    card = synthesise(inputs, n_frames, pcm16=True, mulaw=True)
+    card = {k: v.cpu() for k, v in card.items()}
+    ref16 = cpu.synthesise_on_device(inputs, n_frames, pcm16=True)
+    refmu = cpu.synthesise_on_device(inputs, n_frames, mulaw=True)
+    for ref in (ref16, refmu):
+        assert torch.equal(card["durations"], ref["durations"]), "durations differ card/CPU"
+    lengths = card["wav_lengths"].numpy()
+    steps = int(np.ceil(WAV_ATOL * 32767)) + 1
+    valid = [slice(0, int(n)) for n in lengths]
+    d16 = max(int((card["wav_pcm16"][i, s].int() - ref16["wav_pcm16"][i, s].int()).abs().max())
+              for i, s in enumerate(valid))
+    got = np.concatenate([card["wav_mulaw"][i, s].numpy() for i, s in enumerate(valid)])
+    ref = np.concatenate([refmu["wav_mulaw"][i, s].numpy() for i, s in enumerate(valid)])
+    dmu, share = codes_agree(got, ref)
+    offs = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+    assert np.array_equal(card["wav_offsets"].numpy(), offs), "wav_offsets != cumsum"
+    packed = card["wav_mulaw_packed"].numpy()
+    assert np.array_equal(packed[: int(lengths.sum())], got), "packed rows != code prefixes"
+    assert not packed[int(lengths.sum()):].any(), "the packed buffer is not zero past the total"
+    print(f"  (c) card against CPU on the merged batch of {inputs.x.shape[0]} rows at "
+          f"{n_frames} frames: durations equal; pcm16 max|card - cpu| {d16} steps (bound "
+          f"{steps}); µ-law codes max|d| {dmu}, {share:.3%} differ (bound 1 on < "
+          f"{MULAW_CODE_SHARE:.0%}) over {len(got)} samples; packed rows equal", flush=True)
+    assert d16 <= steps, f"pcm16 differs card/CPU by {d16} steps"
+    assert dmu <= 1 and share < MULAW_CODE_SHARE, f"µ-law codes differ: {dmu}, {share:.3%}"
+    return dict(rows=int(inputs.x.shape[0]), n_frames=n_frames, pcm16_steps=d16,
+                mulaw_max=dmu, mulaw_share=share)
+
+
+def stream_d_factor(model, text):
+    """The d_factor at which `text` (one sentence) lasts about STREAM_FRAMES
+    frames: durations are ceil(d * raw) per token, raw the predictor's."""
+    inputs = model.prepare_input(text)
+    assert inputs.x.shape[0] == 1
+    raw = bf16_durations_before_ceiling(model, inputs)[0, : int(inputs.x_lengths[0])]
+    return round(STREAM_FRAMES / float(raw.float().sum()), 2)
+
+
+def serving_stream(fc, model, httpd, base):
+    """(d) /stream of one long sentence in pcm16 and µ-law, the batcher
+    idle: B1 12 times per window, at least 3 windows; pcm16 within 64
+    steps of /synthesise's, µ-law above 25 dB SNR against the pcm16."""
+    from optispeech_tpu_torch.ops.mulaw import mulaw_decode
+
+    d_factor = stream_d_factor(model, STREAM_TEXT)
+    payload = {"text": STREAM_TEXT, "d_factor": d_factor}
+    port, runs = httpd.server_address[1], {}
+    for fmt in ("pcm16", "mulaw"):
+        fc.convnext_block_fused.launches = 0
+        headers, chunks, first, total = http_stream(port, {**payload, "format": fmt})
+        runs[fmt] = dict(launches=fc.convnext_block_fused.launches, chunks=len(chunks),
+                         first_s=first, total_s=total, data=b"".join(chunks))
+        assert headers["Transfer-Encoding"] == "chunked"
+        assert int(headers["X-Sample-Rate"]) == model.sample_rate
+        assert (headers.get("X-Encoding") == "mulaw") == (fmt == "mulaw")
+    status, headers, body, _ = http_post(base, {**payload, "format": "pcm16"})
+    assert status == 200, f"/synthesise answered {status}"
+    batch = served_audio("pcm16", headers, body, model.sample_rate).astype(int)
+    stream = np.frombuffer(runs["pcm16"]["data"], "<i2").astype(int)
+    codes = np.frombuffer(runs["mulaw"]["data"], np.uint8)
+    windows = -(-len(stream) // (model.hop_length * STREAM_CHUNK))
+    same_length = len(stream) == len(batch)
+    diff = int(np.abs(stream - batch).max()) if same_length else None
+    at = int(np.abs(stream - batch).argmax()) // model.hop_length if same_length else None
+    snr = snr_db(stream / 32767.0, mulaw_decode(codes))
+    for fmt, r in runs.items():
+        print(f"  (d) /stream {fmt}, d_factor {d_factor}: {len(stream) // model.hop_length} "
+              f"frames, {r['chunks']} chunks, first chunk after {r['first_s'] * 1e3:.1f} ms, "
+              f"all after {r['total_s'] * 1e3:.1f} ms; B1 launches {r['launches']}", flush=True)
+    print(f"  stream against /synthesise: max|d| {diff} steps at frame {at} (bound "
+          f"{STREAM_PCM16_STEPS}); "
+          f"µ-law stream SNR {snr:.1f} dB against the pcm16 stream (bound {MULAW_SNR_DB})",
+          flush=True)
+    assert windows >= STREAM_WINDOWS, f"{windows} windows, fewer than {STREAM_WINDOWS}"
+    for fmt, r in runs.items():
+        assert r["chunks"] == windows, f"{fmt}: {r['chunks']} chunks for {windows} windows"
+        assert r["launches"] == B1_PER_CALL * windows, f"{fmt}: {r['launches']} B1 launches"
+    assert len(codes) == len(stream) == len(batch), (len(codes), len(stream), len(batch))
+    assert diff <= STREAM_PCM16_STEPS, f"the stream differs from /synthesise by {diff} steps"
+    assert snr > MULAW_SNR_DB, f"µ-law stream SNR {snr:.1f} dB"
+    return dict(d_factor=d_factor, windows=windows, b1_launches=runs["pcm16"]["launches"],
+                first_chunk_ms={f: r["first_s"] * 1e3 for f, r in runs.items()},
+                total_ms={f: r["total_s"] * 1e3 for f, r in runs.items()}, pcm16_steps=diff,
+                mulaw_snr_db=snr)
+
+
+def row_lengths(synthesise, inputs):
+    """Per-row durations and sample counts of `inputs` at the frame cap."""
+    out = synthesise(inputs, 1024)
+    return out["durations"].cpu(), out["wav_lengths"].cpu().numpy().astype(int)
+
+
+def split_rows(samples, lengths):
+    offs = np.concatenate([[0], np.cumsum(lengths)])
+    assert offs[-1] == len(samples), (offs[-1], len(samples))
+    return [samples[offs[i]:offs[i + 1]] for i in range(len(lengths))]
+
+
+def serving_bf16(fc, serve, ckpt, base, synthesise):
+    """(e) `load_model(bf16=True)` behind a second server: one /synthesise
+    and one /stream of SERVE_BF16_TEXT, B1 12 times a call and a window, on
+    bf16 x; each sentence whose durations equal the f32 model's within
+    BF16_WAV_RTOL of max|f32 row| against the f32 server's /synthesise."""
+    from optispeech_tpu_torch.models.modules import convnext
+
+    bmodel = serve.load_model(ckpt, bf16=True)
+    inputs = bmodel.prepare_input(SERVE_BF16_TEXT)
+    dur32, len32 = row_lengths(synthesise, inputs)
+    dur16, len16 = row_lengths(bmodel.synthesise_on_device, inputs)
+    same = [bool(torch.equal(dur32[i], dur16[i])) for i in range(len(len32))]
+    moved = int((dur32 != dur16).sum())
+    status, headers, body, _ = http_post(base, {"text": SERVE_BF16_TEXT, "format": "pcm16"})
+    assert status == 200
+    ref = split_rows(served_audio("pcm16", headers, body, bmodel.sample_rate), len32)
+
+    seen, wrapper = [], convnext.convnext_block_fused
+
+    def recording(x, *args, **kw):
+        seen.append(x.dtype)
+        return wrapper(x, *args, **kw)
+
+    calls, _ = counted_calls(bmodel)
+    httpd, thread, bbase = start_server(serve, bmodel)
+    convnext.convnext_block_fused = recording
+    try:
+        status, headers, body, _ = http_post(bbase, {"text": SERVE_BF16_TEXT, "format": "pcm16"})
+        assert status == 200, f"bf16 /synthesise answered {status}"
+        got = split_rows(served_audio("pcm16", headers, body, bmodel.sample_rate), len16)
+        n_synth, n_calls = len(seen), len(calls)
+        _, chunks, _, _ = http_stream(httpd.server_address[1], {"text": SERVE_BF16_TEXT})
+        streamed = split_rows(np.frombuffer(b"".join(chunks), "<i2"), len16)
+    finally:
+        convnext.convnext_block_fused = wrapper
+        stop_server(httpd, thread)
+    def worst(rows):  # max|bf16 - f32| / max|f32| over the sentences that kept their durations
+        return max((float(np.abs(g.astype(int) - r.astype(int)).max() / np.abs(r.astype(int)).max())
+                    for g, r, s in zip(rows, ref, same) if s), default=float("nan"))
+
+    rel = {"synthesise": worst(got), "stream": worst(streamed)}
+    windows = sum(-(-int(n) // (bmodel.hop_length * STREAM_CHUNK)) for n in len16)
+    print(f"  (e) bf16 server, one request of {len(same)} sentences: B1 launches {n_synth} in "
+          f"/synthesise ({n_calls} calls) and {len(seen) - n_synth} in /stream ({windows} "
+          f"windows), x {sorted({str(d) for d in seen})}; the bf16 encoder moved {moved} of "
+          f"{int(inputs.x_lengths.sum())} durations, {sum(same)} of {len(same)} sentences kept "
+          f"all of them; on those, max|bf16 - f32|/max|f32| against the f32 server's /synthesise: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()) + f" (rtol {BF16_WAV_RTOL})",
+          flush=True)
+    assert seen and all(d == torch.bfloat16 for d in seen), f"B1 took x in {set(seen)}"
+    assert n_synth == B1_PER_CALL * n_calls, f"{n_synth} B1 launches for {n_calls} calls"
+    assert len(seen) - n_synth == B1_PER_CALL * windows, (
+        f"{len(seen) - n_synth} B1 launches for {windows} windows")
+    assert any(same), "no sentence kept the f32 model's durations in bf16"
+    assert all(v <= BF16_WAV_RTOL for v in rel.values()), f"bf16 wav off the f32 server's: {rel}"
+    return dict(rows_equal=sum(same), rows=len(same), durations_moved=moved, rel_err=rel,
+                b1_launches=len(seen), x_dtype="bfloat16")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1784,6 +2254,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     bf16 = bf16_path(fc, mas, f32_bench_ms, statistics.median(bare_ms[1:]))
 
+    phase("16. the serving runtime (cli/serve.py: prewarm, 32 concurrent requests, card "
+          "against CPU, /stream, --bf16)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving = serving_runtime(fc)
+
     trunk = rows["trunk"]
     kernel = {
         "name": "convnext_block_fused", "route": "cuda",
@@ -1793,6 +2269,10 @@ def main() -> int:
         "launches_dim192_decode": dim192_launches,
         "launches_phase_14": workflow_launches,
         "launches_bf16_decode": bf16["b1_launches_per_decode"],
+        "launches_serving": {
+            "batches": serving["b1_launches"], "synthesise_calls": serving["calls"],
+            "stream_windows": serving["stream"]["windows"],
+            "stream": serving["stream"]["b1_launches"], "bf16": serving["bf16"]["b1_launches"]},
         "max_abs_err": max_abs_err["narrow"],
         "ms": trunk["ms"], "plain_ms": trunk["plain_ms"], "bound_ms": trunk["bound_ms"],
         "bound_by": trunk["bound_by"], "library_ms": trunk["library_ms"],
@@ -1863,6 +2343,7 @@ def main() -> int:
         "ab_int8_rel_err_x_f32": ab_f32_err,
     }
     print("\n  bf16: " + json.dumps(bf16))
+    print("\n  serving: " + json.dumps(serving))
     print(f"\n  build {build_s:.1f} s; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [kernel, wide_kernel, mas_kernel, extract_kernel, int8_kernel]}))
     print(card)

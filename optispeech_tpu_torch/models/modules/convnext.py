@@ -4,7 +4,9 @@ Port of `optispeech_tpu/models/modules/convnext.py`. (B, T, C) in and out.
 In eval mode with `fused`, each block whose shape JAX would tile
 (`ops.fused_convnext.kernel_takes`, its `pick_tile` rule) runs as one call
 of `ops.fused_convnext.convnext_block_fused`: the CUDA kernel on the card,
-its twin on the CPU; any other block runs unfused. In training
+its twin on the CPU; any other block runs unfused, unless the caller
+passes `any_length=True` (the streaming windows, whose length JAX's rule
+does not tile: B1 takes any T). In training
 mode the blocks run unfused, with drop path drawn from the caller's
 `torch.Generator`, as in JAX (fused only when deterministic). Submodule
 names follow the reference's torch keys (`convnext.{i}.dwconv.weight`,
@@ -55,9 +57,10 @@ class ConvNeXtBlock(nn.Module):
             self.gamma = None
         self._fused_cache = None
 
-    def forward(self, x, fused: bool = False, generator: Optional[torch.Generator] = None):
-        if fused and self.gamma is not None and kernel_takes(
-                x.shape[1], self.pwconv1.in_features, self.pwconv1.out_features):
+    def forward(self, x, fused: bool = False, generator: Optional[torch.Generator] = None,
+                any_length: bool = False):
+        if fused and self.gamma is not None and (any_length or kernel_takes(
+                x.shape[1], self.pwconv1.in_features, self.pwconv1.out_features)):
             *params, packed = self.fused_params()
             return convnext_block_fused(x, *params, packed=packed)
         h = conv_btc(self.dwconv, x)
@@ -118,13 +121,13 @@ class ConvNeXtBackbone(nn.Module):
         self.fused_pallas = fused_pallas
 
     def forward(self, x, padding_mask=None, fused: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, any_length: bool = False):
         """padding_mask: (B, T) bool, True on PAD positions. `fused` applies
         in eval mode only."""
         fused = (fused or self.fused_pallas) and not self.training
         keep = None if padding_mask is None else (~padding_mask)[:, :, None].to(x.dtype)
         for block in self.convnext:
-            x = block(x, fused=fused, generator=generator)
+            x = block(x, fused=fused, generator=generator, any_length=any_length)
             if keep is not None:
                 x = x * keep
         return self.final_layer_norm(x)

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..config import ExperimentConfig, InferenceArgs
+from ..ops.mulaw import mulaw_encode, pack_valid_rows
 from ..text import TextProcessor
 from ..utils.bucketing import round_up_to_bucket
 from ..utils.device import resolve_device
@@ -113,14 +114,30 @@ class OptiSpeech:
             torch.cuda.synchronize(self.device)
 
     @torch.inference_mode()
-    def synthesise_on_device(self, inputs: InferenceInputs, n_frames: int, pcm16: bool = False):
+    def synthesise_on_device(self, inputs: InferenceInputs, n_frames: int, pcm16: bool = False,
+                             mulaw: bool = False):
         """Text -> waveform with a fixed frame cap; returns device tensors with
-        no host sync. `pcm16=True` adds a `wav_pcm16` int16 output computed on
-        the device."""
+        no host sync: the serving hot path. The wire formats are computed on
+        the device: `pcm16=True` adds `wav_pcm16` (int16); `mulaw=True` adds
+        `wav_mulaw` (uint8 µ-law codes, `ops/mulaw.py`), `wav_mulaw_packed`
+        (every row's valid prefix at cumulative offsets, so that a fetch
+        ships only real samples) and `wav_offsets`."""
         out = self.generator.synthesise_fixed(*self._tensors(inputs), n_frames=n_frames)
         if pcm16:
             out["wav_pcm16"] = torch.round(out["wav"] * 32767.0).to(torch.int16)
+        if mulaw:
+            codes = mulaw_encode(out["wav"])
+            out["wav_mulaw"] = codes
+            out["wav_mulaw_packed"], out["wav_offsets"] = pack_valid_rows(codes,
+                                                                         out["wav_lengths"])
         return out
+
+    def fetch_packed(self, packed: torch.Tensor, n_valid: int, bucket: int = 65536) -> np.ndarray:
+        """The valid prefix of a packed code buffer (`wav_mulaw_packed`) as
+        numpy: a slice on the device, rounded up to `bucket`, then one copy
+        to the host."""
+        n = min(-(-int(n_valid) // bucket) * bucket, packed.shape[0])
+        return packed[:n].cpu().numpy()[: int(n_valid)]
 
     # ------------------------------------------------------------------
     def prepare_input(

@@ -50,9 +50,12 @@ class WaveNeXt(nn.Module):
                                          layer_scale_init_value, drop_path=drop_path, dtype=dtype)
         self.head = WaveNeXtHead(dim, n_fft, hop_length, dtype)
 
-    def forward(self, x, f0=None, padding_mask=None, generator: Optional[torch.Generator] = None):
+    def forward(self, x, f0=None, padding_mask=None, generator: Optional[torch.Generator] = None,
+                any_length: bool = False):
         """x: (B, T, input_channels) -> (B, T*hop). f0: frame-level pitch,
-        (B, T), (B, 1, T) or (B, T, 1); required when `f0_cond` is on."""
+        (B, T), (B, 1, T) or (B, T, 1); required when `f0_cond` is on.
+        `any_length`: the fused trunk's blocks run fused at any T
+        (`ConvNeXtBlock.forward`)."""
         x = conv_btc(self.embed, x)
         if self.f0_cond:
             if f0 is None:
@@ -60,5 +63,6 @@ class WaveNeXt(nn.Module):
             f0 = f0.reshape(x.shape[0], x.shape[1], 1).to(x.dtype)
             x = x + conv_btc(self.f0_embed, f0)
         x = self.norm(x)
-        x = self.backbone(x, padding_mask, fused=self.fused_pallas, generator=generator)
+        x = self.backbone(x, padding_mask, fused=self.fused_pallas, generator=generator,
+                          any_length=any_length)
         return self.head(x)

@@ -6,15 +6,17 @@ first use. The hash covers the source, the shared headers (`csrc/*.cuh`)
 and the flags, so an edit rebuilds.
 `build_kernels()` starts one nvcc per missing library, all at once, and
 waits for all of them; `load(name)` builds one if needed and opens it with
-ctypes. Nothing is compiled or loaded when a module is imported.
+ctypes, one thread at a time for a first load (two threads of one process
+would otherwise both run nvcc into the same temporary file). Nothing is
+compiled or loaded when a module is imported.
 """
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -90,7 +92,18 @@ def build_kernels(names=None, sources=None) -> dict:
     return result
 
 
-@functools.cache
+_LIBRARIES: dict = {}  # name -> the opened library
+_LOAD_LOCK = threading.Lock()
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The kernel library `name`, built first if needed."""
-    return ctypes.CDLL(build_kernels([name])[name]["path"])
+    """The kernel library `name`, built first if needed. A first load holds
+    a lock through the build, so that threads that launch a kernel for the
+    first time at once (a server's batcher and its streams) build it once."""
+    lib = _LIBRARIES.get(name)
+    if lib is None:
+        with _LOAD_LOCK:
+            lib = _LIBRARIES.get(name)
+            if lib is None:
+                lib = _LIBRARIES[name] = ctypes.CDLL(build_kernels([name])[name]["path"])
+    return lib

@@ -27,7 +27,8 @@ w1 (C, I), w2 (I, C). Both blocks compute the GELU as the JAX kernels do,
   pack. Its twin is `convnext_block_int8_reference`.
 - Each wrapper launches its kernel for a CUDA tensor or raises, and runs its
   twin for a CPU tensor; `<wrapper>.launches` counts kernel launches
-  (`convnext_block_fused.wide_launches` those of B1's wide path).
+  (`convnext_block_fused.wide_launches` those of B1's wide path), under a
+  lock, since a server launches from several threads.
 - The kernels are built with nvcc into `build/` beside the package at first
   use and loaded with ctypes (`ops/_build.py`).
 """
@@ -35,6 +36,7 @@ w1 (C, I), w2 (I, C). Both blocks compute the GELU as the JAX kernels do,
 import ctypes
 import functools
 import math
+import threading
 
 import torch
 
@@ -143,6 +145,15 @@ def convnext_block_fused(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma, *, packed=
 
 convnext_block_fused.launches = 0
 convnext_block_fused.wide_launches = 0  # of those, the wide path's (C > MAX_CHANNELS)
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper, *counters):
+    """Add one to each named counter of `wrapper` (`+=` on an attribute is
+    not atomic across threads)."""
+    with _COUNT_LOCK:
+        for name in counters:
+            setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 # JAX's tile rule (optispeech_tpu/ops/pallas_convnext.py::pick_tile): the
@@ -243,7 +254,7 @@ def convnext_block_launch(x, dw, dwb, lnw, lnb, packed, b1, b2, gamma):
             b, t, c, b1.shape[0], int(x.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"convnext_block_fused: kernel launch failed with cudaError {err}")
-    convnext_block_fused.launches += 1
+    count_launch(convnext_block_fused, "launches")
     return out
 
 
@@ -344,8 +355,7 @@ def convnext_block_wide_launch(x, dw, dwb, lnw, lnb, packed, b1, b2, gamma):
             stream)
     if err != 0:
         raise RuntimeError(f"convnext_block_fused: wide-path launch failed with cudaError {err}")
-    convnext_block_fused.launches += 1
-    convnext_block_fused.wide_launches += 1
+    count_launch(convnext_block_fused, "launches", "wide_launches")
     return out
 
 
@@ -525,7 +535,7 @@ def convnext_block_int8_launch(x, dw, dwb, lnw, lnb, packed, b1, b2, gamma):
         )
     if err != 0:
         raise RuntimeError(f"convnext_block_fused_int8: kernel launch failed with cudaError {err}")
-    convnext_block_fused_int8.launches += 1
+    count_launch(convnext_block_fused_int8, "launches")
     return out
 
 

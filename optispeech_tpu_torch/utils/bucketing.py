@@ -13,3 +13,15 @@ def round_up_to_bucket(n: int, bucket: int, minimum: int | None = None) -> int:
         out = max(out, minimum)
     return out
 
+
+def round_up_pow2_bucket(n: int, bucket: int, cap: int | None = None) -> int:
+    """Round `n` up to `bucket * 2**k`, at most `cap`: a geometric ladder of
+    shapes, so that a drifting estimate (the server's frame cap) lands on
+    log2(cap / bucket) + 1 shapes at the cost of at most 2x padding."""
+    n = max(int(n), 1)
+    rung = bucket
+    while rung < n and (cap is None or rung < cap):
+        rung *= 2
+    if cap is not None:
+        rung = min(rung, cap)
+    return rung

@@ -46,6 +46,9 @@ WORKFLOW_MODULES = [f"optispeech_tpu_torch.{m}" for m in (
     "utils.wavio", "models.optispeech", "cli.infer", "data.dsp", "data.pitch", "data.vad",
     "data.preprocess", "data.statistics", "data.datamodule", "cli.preprocess", "cli.stats",
     "data.synthcorpus")]
+# the serving slice: the wire, chunked streaming and the HTTP server
+SERVING_MODULES = [f"optispeech_tpu_torch.{m}" for m in (
+    "ops.mulaw", "models.streaming", "cli.serve", "utils.bucketing")]
 
 # without pyyaml the CLI imports and trains a config built in code; only
 # reading a YAML file needs it
@@ -70,7 +73,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     first, imported = proc.stdout.splitlines()[:2]
     assert int(first.split()[0]) >= 35  # every module of the package was imported
-    assert set(TRAINING_MODULES + INT8_MODULES + WORKFLOW_MODULES) <= set(imported.split())
+    assert set(TRAINING_MODULES + INT8_MODULES + WORKFLOW_MODULES
+               + SERVING_MODULES) <= set(imported.split())
 
 
 def test_training_cli_imports_without_yaml():
