@@ -153,7 +153,26 @@ Phases, each of which fails the run on any error:
      first chunk; (e) `load_model(bf16=True)` behind a second server, one
      /synthesise and one /stream of ten sentences: B1 12 times a call and
      a window, on bf16 x, and each sentence whose durations equal the f32
-     model's within BF16_WAV_RTOL of the f32 server's answer.
+     model's within BF16_WAV_RTOL of the f32 server's answer;
+ 17. export and replay, in a temporary directory outside the checkout that
+     is deleted after: (a) phase 4's weights saved with
+     `OptiSpeech.save_checkpoint` go through `cli/export.py` at its default
+     ladders (fused, traced on the CPU): the export's wall seconds, the
+     graph count (JAX's keys) and the artifact's size; (b) `cli/speak.py`
+     on the card writes finite wavs of frames x hop samples, B1 12 times in
+     its decode replay; (c) `ExportedOptiSpeech` on the card (through
+     `cli/serve.py::load_model`): B1 12 times per decode replay; against
+     the live fused model on the card at the same rung and frames and
+     against the same artifact on the CPU (B1's twin): durations equal, wav
+     within WAV_ATOL; replay latency at each batch rung of the 64-token
+     bucket beside the live `synthesise` (observations); (d) the server on
+     the artifact: `prewarm` lists every (text bucket x batch rung) key and
+     the stream, phase 16(b)'s 32 concurrent requests (B1 12 times per
+     decode replay), and /stream at phase 16(d)'s d_factor (B1 12 times per
+     window, within 64 steps of the artifact's /synthesise); (e) phase 4's
+     bench-shape figure through B1's registered op and with B1 launched
+     directly (its binding before it became an op), in turns, beside the
+     figure recorded before the op (observations).
 The kernels build in parallel (one nvcc per source, five sources and the probe).
 Prints the kernels' JSON line and the card line, and as its last line
 {"ok": true, "device": {...}}. Without a card, or without the repo beside
@@ -1909,10 +1928,11 @@ def _serving_runtime(fc, root):
     return out
 
 
-def serving_batches(fc, model, httpd, base, calls):
+def serving_batches(fc, model, httpd, base, calls, unit="synthesise_on_device call"):
     """(b) /health, /info, then 32 concurrent /synthesise requests in the
     four formats: every answer 200 and whole, fewer batches than requests,
-    B1 12 times per synthesise_on_device call."""
+    B1 12 times per `unit` recorded in `calls` (each (inputs, its frame cap
+    or batch rung, its wire))."""
     import threading
 
     health, info = http_get(base, "/health"), http_get(base, "/info")
@@ -1964,19 +1984,19 @@ def serving_batches(fc, model, httpd, base, calls):
     front_ms = (time.perf_counter() - t0) * 1e3
     print(f"  {len(payloads)} concurrent requests (formats {SERVE_FORMATS} x 8): all 200, none "
           f"truncated; {batches} batches, "
-          f"{rows} rows, {len(calls)} synthesise_on_device calls (frame caps "
-          f"{[n for _, n, _ in calls]}, wires {wires}), B1 launches {launches}", flush=True)
+          f"{rows} rows, {len(calls)} {unit}s ({[n for _, n, _ in calls]}, wires {wires}), "
+          f"B1 launches {launches}", flush=True)
     print(f"  latency p50 {p50:.1f} ms, p95 {p95:.1f} ms (client wall per request); "
           f"{audio_s:.2f} s of audio in {wall:.3f} s of wall: {audio_s / wall:.1f} s of audio "
           f"per wall second", flush=True)
     print("  batcher wall by stage: " + ", ".join(
         f"{k} {v * 1e3:.1f} ms ({v / busy:.1%})" for k, v in stages.items())
-        + f"; synthesise_on_device's share {stages['synthesise'] / busy:.1%}; the batcher "
+        + f"; the synthesise stage's share {stages['synthesise'] / busy:.1%}; the batcher "
         f"busy {busy * 1e3:.1f} ms of the {wall * 1e3:.1f} ms wall; prepare_input of the 32 "
         f"texts on one thread {front_ms:.1f} ms (the handlers run it under one GIL)", flush=True)
     assert batches < len(payloads), f"{batches} batches for {len(payloads)} requests"
     assert launches == B1_PER_CALL * len(calls), (
-        f"expected {B1_PER_CALL * len(calls)} B1 launches for {len(calls)} calls, got {launches}")
+        f"expected {B1_PER_CALL * len(calls)} B1 launches for {len(calls)} {unit}s, got {launches}")
     return dict(requests=len(payloads), batches=batches, rows=rows, calls=len(calls),
                 b1_launches=launches, latency_p50_ms=p50, latency_p95_ms=p95,
                 audio_s_per_wall_s=audio_s / wall, stage_ms={k: v * 1e3 for k, v in
@@ -2033,13 +2053,14 @@ def stream_d_factor(model, text):
     return round(STREAM_FRAMES / float(raw.float().sum()), 2)
 
 
-def serving_stream(fc, model, httpd, base):
+def serving_stream(fc, model, httpd, base, d_factor=None, label="(d)"):
     """(d) /stream of one long sentence in pcm16 and µ-law, the batcher
     idle: B1 12 times per window, at least 3 windows; pcm16 within 64
-    steps of /synthesise's, µ-law above 25 dB SNR against the pcm16."""
+    steps of /synthesise's, µ-law above 25 dB SNR against the pcm16. The
+    d_factor is read from the live model unless given."""
     from optispeech_tpu_torch.ops.mulaw import mulaw_decode
 
-    d_factor = stream_d_factor(model, STREAM_TEXT)
+    d_factor = d_factor or stream_d_factor(model, STREAM_TEXT)
     payload = {"text": STREAM_TEXT, "d_factor": d_factor}
     port, runs = httpd.server_address[1], {}
     for fmt in ("pcm16", "mulaw"):
@@ -2061,7 +2082,7 @@ def serving_stream(fc, model, httpd, base):
     at = int(np.abs(stream - batch).argmax()) // model.hop_length if same_length else None
     snr = snr_db(stream / 32767.0, mulaw_decode(codes))
     for fmt, r in runs.items():
-        print(f"  (d) /stream {fmt}, d_factor {d_factor}: {len(stream) // model.hop_length} "
+        print(f"  {label} /stream {fmt}, d_factor {d_factor}: {len(stream) // model.hop_length} "
               f"frames, {r['chunks']} chunks, first chunk after {r['first_s'] * 1e3:.1f} ms, "
               f"all after {r['total_s'] * 1e3:.1f} ms; B1 launches {r['launches']}", flush=True)
     print(f"  stream against /synthesise: max|d| {diff} steps at frame {at} (bound "
@@ -2150,6 +2171,255 @@ def serving_bf16(fc, serve, ckpt, base, synthesise):
     assert all(v <= BF16_WAV_RTOL for v in rel.values()), f"bf16 wav off the f32 server's: {rel}"
     return dict(rows_equal=sum(same), rows=len(same), durations_moved=moved, rel_err=rel,
                 b1_launches=len(seen), x_dtype="bfloat16")
+
+
+# -- phase 17: export and replay ---------------------------------------------------
+
+EXPORT_BUCKETS, EXPORT_RUNGS = (32, 64, 128), (1, 2, 4, 8)  # cli/export.py's default ladders
+EXPORT_STREAM_WINDOWS = (304, 352)  # chunk 256 + overlap 48 (the first window), + 2 x 48
+REPLAY_BUCKET = 64  # (c) replay latency at each batch rung of this text bucket
+# phase 4's bench-shape median in the last run before B1 went through its
+# registered op (PERF.md §5; NVIDIA H100 80GB HBM3, 700.00 W): printed beside
+# this run's
+PRE_OP_BENCH_MS = 18.34
+
+
+def export_keys():
+    """The graph keys of an artifact at cli/export.py's defaults (12 frames
+    a token, the flagship's mel bucket of 128)."""
+    from optispeech_tpu_torch.utils.bucketing import round_up_to_bucket
+
+    keys = []
+    for tb in EXPORT_BUCKETS:
+        mb = round_up_to_bucket(tb * 12, 128)
+        for nb in EXPORT_RUNGS:
+            suffix = "" if nb == 1 else f"_b{nb}"
+            keys += [f"encode_{tb}{suffix}", f"decode_{tb}_{mb}{suffix}"]
+        keys.append(f"stream_upsample_{tb}_{mb}")
+    return sorted(keys + [f"stream_decode_{n}" for n in EXPORT_STREAM_WINDOWS])
+
+
+def export_replay(fc, stream_d_factor_):
+    """Phase 17. In a temporary directory, deleted after. Returns what the
+    kernels line and the summary keep."""
+    import shutil
+    import tempfile
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_export_"))
+    try:
+        return _export_replay(fc, root, stream_d_factor_)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _export_replay(fc, root, stream_d_factor_):
+    from optispeech_tpu_torch.cli import export as export_cli
+    from optispeech_tpu_torch.cli import serve
+
+    t_phase = time.perf_counter()
+    # (a) phase 4's weights through cli/export.py at its default ladders
+    ckpt, art = str(root / "flagship"), str(root / "artifact")
+    from optispeech_tpu_torch.models.optispeech import OptiSpeech
+
+    OptiSpeech(flagship_config(), seed=0, device="cpu").save_checkpoint(ckpt)
+    t0 = time.perf_counter()
+    export_cli.main([ckpt, art])
+    export_s = time.perf_counter() - t0
+    graphs = sorted(p.stem for p in (root / "artifact" / "graphs").iterdir())
+    size = {p.name: p.stat().st_size for p in (root / "artifact").iterdir() if p.is_file()}
+    graph_bytes = sum(p.stat().st_size for p in (root / "artifact" / "graphs").iterdir())
+    print(f"  (a) cli/export.py on phase 4's weights (fused, traced on the CPU): {len(graphs)} "
+          f"graphs in {export_s:.1f} s; artifact {(sum(size.values()) + graph_bytes) / 2**20:.1f} "
+          f"MiB: graphs {graph_bytes / 2**20:.2f} MiB, " + ", ".join(
+              f"{k} {v / 2**20:.2f} MiB" for k, v in sorted(size.items())), flush=True)
+    assert graphs == export_keys(), f"graph keys {graphs}"
+
+    out = dict(export_s=export_s, graphs=len(graphs),
+               artifact_mib=(sum(size.values()) + graph_bytes) / 2**20)
+    out["speak"] = speak_on_card(fc, art, root / "speak")
+    model = serve.load_model(art)  # the card, as the server runs it
+    assert model.device.type == "cuda" and type(model).__name__ == "ExportedOptiSpeech"
+    out["replay"] = replay_on_card(fc, model, art, ckpt)
+    out["serve"] = serve_artifact(fc, serve, model, stream_d_factor_)
+    out["bench"] = bench_through_the_op(fc, ckpt)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 17 took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def speak_on_card(fc, art, out_dir):
+    """(b) cli/speak.py on the card: finite wavs of frames x hop samples, B1
+    12 times per decode replay."""
+    from optispeech_tpu_torch.cli import speak
+    from optispeech_tpu_torch.utils.wavio import load_wav
+
+    fc.convnext_block_fused.launches = 0
+    t0 = time.perf_counter()
+    outputs = speak.main([art, SENTENCE, str(out_dir)])
+    wall = time.perf_counter() - t0
+    launches = fc.convnext_block_fused.launches
+    wavs = [load_wav(str(out_dir / f"gen-{i + 1}.wav"))[0] for i in range(len(outputs.wav_lengths))]
+    assert sorted(p.name for p in out_dir.iterdir()) == [f"gen-{i + 1}.wav"
+                                                        for i in range(len(wavs))]
+    check_wavs(outputs, wavs, 256, "cli/speak.py")
+    print(f"  (b) cli/speak.py on the card: {len(wavs)} wavs, "
+          f"{sum(len(w) for w in wavs) / 24000:.3f} s of audio, finite, frames x hop samples; "
+          f"{wall:.2f} s of wall (the artifact's load included), latency {outputs.latency:.2f} ms, "
+          f"rtf {outputs.rtf:.5f}; B1 launches {launches}", flush=True)
+    assert launches == B1_PER_CALL, f"cli/speak.py: {launches} B1 launches for one decode replay"
+    return dict(wall_s=wall, latency_ms=outputs.latency, b1_launches=launches)
+
+
+def replay_inputs(rows, seed=0):
+    """`rows` rows of REPLAY_BUCKET seeded token ids."""
+    from optispeech_tpu_torch.values import InferenceInputs
+
+    rng = np.random.default_rng(seed)
+    ids = [rng.integers(3, 150, REPLAY_BUCKET).astype(np.int64).tolist() for _ in range(rows)]
+    return InferenceInputs.from_ids_and_lengths(ids=ids, lengths=[REPLAY_BUCKET] * rows,
+                                                clean_text="replay")
+
+
+def replay_on_card(fc, card, art, ckpt):
+    """(c) ExportedOptiSpeech on the card: B1 12 times per decode replay;
+    against the live fused model on the card at the same rung and frame
+    count, and against the same artifact on the CPU (B1's twin); replay
+    latency at each batch rung of the 64-token bucket beside the live
+    model's `synthesise`."""
+    from optispeech_tpu_torch.export.exporter import ExportedOptiSpeech
+    from optispeech_tpu_torch.models.optispeech import OptiSpeech
+
+    live = OptiSpeech.load_from_checkpoint(ckpt, fused=True)
+    cpu = ExportedOptiSpeech(art, device="cpu")
+    inputs = card.prepare_input(SENTENCE, split_sentences=True)
+    tb = card._text_bucket(inputs.x.shape[1])
+    mb = card._decode_buckets(tb, 2)[-1]
+    fc.convnext_block_fused.launches = 0
+    got = card.synthesise(inputs)
+    launches = fc.convnext_block_fused.launches
+    assert launches == B1_PER_CALL, f"{launches} B1 launches for one decode replay"
+    ref = {k: v.cpu().numpy() for k, v in live.synthesise_on_device(inputs, mb).items()}
+    before_cpu = fc.convnext_block_fused.launches
+    on_cpu = cpu.synthesise(inputs)
+    assert fc.convnext_block_fused.launches == before_cpu, "the CPU replay launched B1"
+    lengths = got.wav_lengths
+    live_dur = ref["durations"][:, :got.durations.shape[1]]
+    live_diff = max(float(np.abs(got.wav[i, :n] - ref["wav"][i, :n]).max())
+                    for i, n in enumerate(lengths))
+    cpu_diff = float(np.abs(got.wav - on_cpu.wav).max())
+    print(f"  (c) ExportedOptiSpeech on the card, {inputs.x.shape[0]} sentences at text bucket "
+          f"{tb}, rung 2, {mb} frames: B1 launches {launches} in one decode replay; against the "
+          f"live fused model at the same rung and frames: durations equal "
+          f"{np.array_equal(got.durations, live_dur)}, wav max|d| {live_diff:.3e}; against the "
+          f"artifact on the CPU (B1's twin): durations equal "
+          f"{np.array_equal(got.durations, on_cpu.durations)}, wav max|d| {cpu_diff:.3e} (atol "
+          f"{WAV_ATOL})", flush=True)
+    assert np.array_equal(got.durations, live_dur), "durations differ from the live model's"
+    assert np.array_equal(got.wav_lengths, ref["wav_lengths"]), "lengths differ from the live's"
+    assert live_diff <= WAV_ATOL, f"the replay differs from the live model by {live_diff}"
+    assert np.array_equal(got.durations, on_cpu.durations), "durations differ card/CPU"
+    assert np.array_equal(got.wav_lengths, on_cpu.wav_lengths)
+    assert cpu_diff <= WAV_ATOL, f"the replay differs card/CPU by {cpu_diff}"
+    del cpu
+
+    latency = {}
+    for nb in EXPORT_RUNGS:
+        rung_inputs = replay_inputs(nb, seed=nb)
+        replay, direct = [], []
+        for _ in range(6):  # the first of each is a warm-up
+            replay.append(card.synthesise(rung_inputs).latency)
+            direct.append(live.synthesise(rung_inputs).latency)
+        latency[nb] = {"replay_ms": statistics.median(replay[1:]),
+                       "live_ms": statistics.median(direct[1:])}
+    print("  replay latency (InferenceOutputs.latency, median of 5) at text bucket "
+          f"{REPLAY_BUCKET}, each batch rung, beside the live fused model's synthesise on the same "
+          "inputs (observations): " + "; ".join(
+              f"b{nb} {v['replay_ms']:.2f} / {v['live_ms']:.2f} ms" for nb, v in latency.items()),
+          flush=True)
+    return dict(b1_launches=launches, live_wav_diff=live_diff, cpu_wav_diff=cpu_diff,
+                latency_ms=latency)
+
+
+def counted_slabs(model):
+    """Wrap an artifact's `_synthesise_slab` (one encode and one decode
+    replay) to record each slab's rows, batch rung and wire."""
+    calls, original = [], model._synthesise_slab
+
+    def counted(inputs, tb, row, count, nb):
+        calls.append((inputs, nb, "host"))
+        return original(inputs, tb, row, count, nb)
+
+    model._synthesise_slab = counted
+    return calls
+
+
+def serve_artifact(fc, serve, model, stream_d_factor_):
+    """(d) cli/serve.py on the artifact: prewarm's keys, phase 16(b)'s 32
+    concurrent requests (B1 12 times per decode replay), and one /stream
+    at phase 16(d)'s d_factor (B1 12 times per window, within 64 steps of
+    the artifact's /synthesise)."""
+    t0 = time.perf_counter()
+    warm = serve.prewarm(model, max_batch=SERVE_MAX_BATCH)
+    print(f"  (d) load_model(ARTIFACT) on the card; prewarm in {time.perf_counter() - t0:.2f} s: "
+          + ", ".join(f"{k} {v}" for k, v in warm.items()), flush=True)
+    assert list(warm) == [f"encode_{tb}_b{nb}" for tb in EXPORT_BUCKETS
+                          for nb in EXPORT_RUNGS] + ["stream"], list(warm)
+    calls = counted_slabs(model)
+    httpd, thread, base = start_server(serve, model, max_batch=SERVE_MAX_BATCH)
+    try:
+        out = serving_batches(fc, model, httpd, base, calls, unit="decode replay")
+        out["stream"] = serving_stream(fc, model, httpd, base, d_factor=stream_d_factor_,
+                                       label="   ")
+    finally:
+        stop_server(httpd, thread)
+    out["prewarm_s"] = warm
+    return out
+
+
+def bench_through_the_op(fc, ckpt):
+    """(e) phase 4's bench-shape figure after the op change: the live fused
+    model's synthesise_on_device through B1's registered op, and with B1
+    launched as before it became an op (the wrapper straight to the ctypes
+    call), interleaved, 3 rounds of a median of 5 each; printed beside the
+    figure recorded before the op. Observations."""
+    from optispeech_tpu_torch.models.modules import convnext
+    from optispeech_tpu_torch.models.optispeech import OptiSpeech
+
+    api = OptiSpeech.load_from_checkpoint(ckpt, fused=True)
+    inputs, n_frames = bench_inputs(), BENCH["n_frames"]
+    through_op = convnext.convnext_block_fused
+
+    def direct(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma, *, packed=None):
+        fc._check_args(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma)
+        return fc.convnext_block_launch(x, dw, dwb, lnw, lnb, packed, b1, b2, gamma)
+
+    def median_ms():
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            api.synthesise_on_device(inputs, n_frames, pcm16=True)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(walls)
+
+    arms = {"op": [], "direct": []}
+    try:
+        for arm in ("op", "direct"):  # warm-up
+            convnext.convnext_block_fused = through_op if arm == "op" else direct
+            median_ms()
+        for _ in range(3):
+            for arm in ("op", "direct"):
+                convnext.convnext_block_fused = through_op if arm == "op" else direct
+                arms[arm].append(median_ms())
+    finally:
+        convnext.convnext_block_fused = through_op
+    ms = {arm: statistics.median(v) for arm, v in arms.items()}
+    print(f"  (e) synthesise_on_device at bench shape (phase 4's figure), median of 3 rounds of a "
+          f"median of 5: through the op {ms['op']:.2f} ms {[round(v, 2) for v in arms['op']]}, B1 "
+          f"launched directly (the binding before the op) {ms['direct']:.2f} ms "
+          f"{[round(v, 2) for v in arms['direct']]}; phase 4 before the op: {PRE_OP_BENCH_MS} ms "
+          f"(PERF.md; observations)", flush=True)
+    return dict(op_ms=ms["op"], direct_ms=ms["direct"], rounds=arms, pre_op_ms=PRE_OP_BENCH_MS)
 
 
 def main() -> int:
@@ -2260,6 +2530,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     serving = serving_runtime(fc)
 
+    phase("17. export and replay (cli/export.py, cli/speak.py, ExportedOptiSpeech card against "
+          "CPU, cli/serve.py on the artifact, phase 4's figure through the op)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    export = export_replay(fc, serving["stream"]["d_factor"])
+
     trunk = rows["trunk"]
     kernel = {
         "name": "convnext_block_fused", "route": "cuda",
@@ -2273,6 +2549,12 @@ def main() -> int:
             "batches": serving["b1_launches"], "synthesise_calls": serving["calls"],
             "stream_windows": serving["stream"]["windows"],
             "stream": serving["stream"]["b1_launches"], "bf16": serving["bf16"]["b1_launches"]},
+        "launches_export": {
+            "speak": export["speak"]["b1_launches"], "replay": export["replay"]["b1_launches"],
+            "serve_batches": export["serve"]["b1_launches"],
+            "serve_decode_replays": export["serve"]["calls"],
+            "serve_stream_windows": export["serve"]["stream"]["windows"],
+            "serve_stream": export["serve"]["stream"]["b1_launches"]},
         "max_abs_err": max_abs_err["narrow"],
         "ms": trunk["ms"], "plain_ms": trunk["plain_ms"], "bound_ms": trunk["bound_ms"],
         "bound_by": trunk["bound_by"], "library_ms": trunk["library_ms"],
@@ -2344,6 +2626,7 @@ def main() -> int:
     }
     print("\n  bf16: " + json.dumps(bf16))
     print("\n  serving: " + json.dumps(serving))
+    print("\n  export: " + json.dumps(export))
     print(f"\n  build {build_s:.1f} s; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [kernel, wide_kernel, mas_kernel, extract_kernel, int8_kernel]}))
     print(card)

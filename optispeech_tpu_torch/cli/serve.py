@@ -30,11 +30,15 @@ requests with equal (d, p, e) coalesce; speaker and language ids are per
 row and batch freely. One batcher thread makes every batched device call;
 /stream handlers run their windows on their own threads.
 
-The model is a live checkpoint (`config.json` + `generator.pt`). An
-exported artifact (`metadata.json`) is not served yet (ROADMAP A6).
+The model is a live checkpoint (`config.json` + `generator.pt`) or an
+exported artifact (`metadata.json`, `export/exporter.py`): the artifact's
+batches replay its graphs up its batch ladder (`ExportedOptiSpeech.
+synthesise`, the wire transcoded on the host), its /stream replays its
+stream graphs, and an artifact exported without them answers /stream with
+501.
 
 Usage:
-    python -m optispeech_tpu_torch.cli.serve CHECKPOINT [--host 0.0.0.0 --port 8000]
+    python -m optispeech_tpu_torch.cli.serve MODEL_DIR [--host 0.0.0.0 --port 8000]
         [--max-batch 32 --batch-wait-ms 20] [--bf16] [--device cpu]
 
 `--device` defaults to the CUDA card and raises without one.
@@ -61,11 +65,13 @@ log = get_pylogger(__name__)
 def load_model(path: str, bf16: bool = False, fused: bool = True, device=None):
     """A live inference checkpoint on `device` (default: the card; raises
     when there is none), with the decoder and the vocoder trunk on the fused
-    block by default, computing in bfloat16 with `bf16`."""
+    block by default, computing in bfloat16 with `bf16`; or an exported
+    artifact (`metadata.json`) replayed on `device`, whose graphs are what
+    was exported: `bf16` and `fused` are ignored there, as in JAX."""
     if os.path.exists(os.path.join(path, "metadata.json")):
-        raise NotImplementedError(
-            f"{path} is an exported artifact; the port cannot serve one until export is "
-            "ported (ROADMAP.md, queue A item 6)")
+        from ..export.exporter import ExportedOptiSpeech
+
+        return ExportedOptiSpeech(path, device=device)
     import torch
 
     from ..models.optispeech import OptiSpeech
@@ -223,11 +229,14 @@ class Batcher:
         truncated mask, latency_ms). `wire` is "pcm16" (int16) or "mulaw"
         (uint8, a quarter of the float32 bytes).
 
-        One `synthesise_on_device` call, with the wire computed on the
-        device. The frame cap is the observed frames/token (per unit
-        d_factor) times the longest row, on a power-of-two ladder of mel
-        buckets; if a row fills the cap, the cap doubles and the batch runs
-        again, up to `data.max_mel_len`."""
+        A live model: one `synthesise_on_device` call, with the wire
+        computed on the device. The frame cap is the observed frames/token
+        (per unit d_factor) times the longest row, on a power-of-two ladder
+        of mel buckets; if a row fills the cap, the cap doubles and the
+        batch runs again, up to `data.max_mel_len`. An exported artifact:
+        its generic `synthesise`, the wire transcoded on the host."""
+        if not hasattr(self.model, "synthesise_on_device"):
+            return self._synthesise_generic(merged, wire)
         from ..utils.bucketing import round_up_pow2_bucket
 
         t0 = time.perf_counter()
@@ -273,6 +282,24 @@ class Batcher:
         self.stage_seconds["synthesise"] += t1 - t0
         self.stage_seconds["fetch"] += t2 - t1
         return rows, wav_lengths, truncated, (t2 - t0) * 1e3
+
+    def _synthesise_generic(self, merged, wire: str):
+        """`synthesise` (an artifact's, up its batch ladder), its float32
+        audio transcoded on the host; nothing is truncated. Its wall counts
+        as `synthesise` (the audio's fetch included)."""
+        t0 = time.perf_counter()
+        out = self.model.synthesise(merged)
+        wav_lengths = np.asarray(out.wav_lengths).astype(int)
+        if wire == "mulaw":
+            from ..ops.mulaw import mulaw_encode_np
+
+            audio = mulaw_encode_np(np.asarray(out.wav))
+        else:
+            audio = (np.clip(np.asarray(out.wav), -1, 1) * 32767.0).astype("<i2")
+        rows = [audio[j, : wav_lengths[j]] for j in range(len(wav_lengths))]
+        t1 = time.perf_counter()
+        self.stage_seconds["synthesise"] += t1 - t0
+        return rows, wav_lengths, np.zeros(len(wav_lengths), bool), (t1 - t0) * 1e3
 
     def _loop(self):
         while True:
@@ -326,18 +353,28 @@ def _wav_bytes(pcm16: np.ndarray, sr: int) -> bytes:
 
 def make_handler(model, batcher: Batcher, timeout_s: float = 300.0,
                  stream_chunk_frames: int = 256, stream_overlap: int | None = None):
-    streamer_box: list = []  # the StreamingSynthesiser, built at the first /stream
+    streamer_box: list = []  # the streamer, built at the first /stream
     streamer_lock = threading.Lock()
 
     def get_streamer():
+        """The live model's StreamingSynthesiser, an artifact's
+        ExportedStreamingSynthesiser (its windows are the exported ones),
+        or None for an artifact without stream graphs."""
         with streamer_lock:
             if not streamer_box:
-                from ..models.streaming import DEFAULT_OVERLAP, StreamingSynthesiser
+                if hasattr(model, "generator"):
+                    from ..models.streaming import DEFAULT_OVERLAP, StreamingSynthesiser
 
-                streamer_box.append(StreamingSynthesiser(
-                    model, chunk_frames=stream_chunk_frames,
-                    overlap=DEFAULT_OVERLAP if stream_overlap is None else stream_overlap,
-                ))
+                    streamer_box.append(StreamingSynthesiser(
+                        model, chunk_frames=stream_chunk_frames,
+                        overlap=DEFAULT_OVERLAP if stream_overlap is None else stream_overlap,
+                    ))
+                elif getattr(model, "stream_meta", None):
+                    from ..export.exporter import ExportedStreamingSynthesiser
+
+                    streamer_box.append(ExportedStreamingSynthesiser(model))
+                else:
+                    return None
         return streamer_box[0]
 
     return _make_handler_cls(model, batcher, timeout_s, get_streamer)
@@ -382,6 +419,10 @@ def _make_handler_cls(model, batcher, timeout_s, get_streamer):
         def do_POST(self):
             if self.path not in ("/synthesise", "/synthesize", "/stream"):
                 self._json(404, {"error": f"unknown path {self.path}"})
+                return
+            if self.path == "/stream" and get_streamer() is None:
+                self._json(501, {"error": "this artifact has no stream graphs; "
+                                          "re-export with stream_chunk_frames set"})
                 return
             try:
                 length = int(self.headers.get("Content-Length", 0))
@@ -532,19 +573,29 @@ def _make_handler_cls(model, batcher, timeout_s, get_streamer):
 
 
 def _lang_kw(model, language):
-    """The request's language as `prepare_input`'s keyword, when it names one."""
-    return {} if language is None else {"language": language}
+    """The request's language as `prepare_input`'s keyword, when it names
+    one: `language=` for OptiSpeech, `lang=` for ExportedOptiSpeech."""
+    if language is None:
+        return {}
+    import inspect
+
+    params = inspect.signature(model.prepare_input).parameters
+    return {"language" if "language" in params else "lang": language}
 
 
-def prewarm(model, max_batch: int = 32, frames_per_token: int = 8) -> dict:
+def prewarm(model, max_batch: int = 32, frames_per_token: int = 8, stream: bool = True) -> dict:
     """Run every serving shape once before the server binds its port, so
     that the first requests do not pay the first calls' costs (cuDNN's
-    plans, the kernels' build and load, the caching allocator's growth):
-    `synthesise_on_device` at every power-of-two batch rung up to
-    `max_batch`, at the text bucket and the default frame rung, in both
-    wire formats. Other frame rungs warm at their first use.
+    plans, the kernels' build and load, the caching allocator's growth).
 
-    Returns {"b{rows}_{wire}": seconds}."""
+    - A live model: `synthesise_on_device` at every power-of-two batch rung
+      up to `max_batch`, at the text bucket and the default frame rung, in
+      both wire formats ({"b{rows}_{wire}": seconds}). Other frame rungs
+      warm at their first use.
+    - An exported artifact: `synthesise` at every (text bucket x batch
+      rung), which replays its encode graph and a decode graph
+      ({"encode_{tb}_b{rows}": seconds}), and, with `stream`, one stream
+      over the stream graphs ({"stream": seconds})."""
     from ..utils.bucketing import round_up_pow2_bucket
     from ..values import InferenceInputs
 
@@ -559,6 +610,21 @@ def prewarm(model, max_batch: int = 32, frames_per_token: int = 8) -> dict:
             d_factor=1.0, p_factor=1.0, e_factor=1.0,
         )
 
+    if hasattr(model, "_rungs"):  # ExportedOptiSpeech
+        for tb in model.text_buckets:
+            for nb in model._rungs.get(tb, [1]):
+                t0 = time.perf_counter()
+                model.synthesise(dummy(nb, tb))
+                timings[f"encode_{tb}_b{nb}"] = round(time.perf_counter() - t0, 3)
+        if stream and getattr(model, "stream_meta", None):
+            from ..export.exporter import ExportedStreamingSynthesiser
+
+            t0 = time.perf_counter()
+            for _ in ExportedStreamingSynthesiser(model).stream(dummy(1, model.text_buckets[0])):
+                pass
+            timings["stream"] = round(time.perf_counter() - t0, 3)
+        log.info(f"prewarm: {len(timings)} graphs in {sum(timings.values()):.1f}s")
+        return timings
     tb = model.text_bucket
     cap = getattr(getattr(model, "cfg", None), "data", None)
     cap = getattr(cap, "max_mel_len", None) or 4096
@@ -599,7 +665,7 @@ def serve(model, host: str = "0.0.0.0", port: int = 8000,
 
 def main(argv=None):
     p = argparse.ArgumentParser(description="OptiSpeech batching HTTP server")
-    p.add_argument("model", help="inference checkpoint directory")
+    p.add_argument("model", help="inference checkpoint directory or exported artifact directory")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--max-batch", type=int, default=32,
@@ -607,7 +673,7 @@ def main(argv=None):
     p.add_argument("--batch-wait-ms", type=float, default=20.0,
                    help="how long an idle batch waits for co-batchees")
     p.add_argument("--bf16", action="store_true",
-                   help="bfloat16 activations (the weights stay float32)")
+                   help="bfloat16 activations (the weights stay float32); a live checkpoint only")
     p.add_argument("--stream-chunk-frames", type=int, default=256,
                    help="frames per /stream window")
     p.add_argument("--request-timeout", type=float, default=300.0,

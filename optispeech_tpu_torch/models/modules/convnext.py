@@ -3,10 +3,10 @@
 Port of `optispeech_tpu/models/modules/convnext.py`. (B, T, C) in and out.
 In eval mode with `fused`, each block whose shape JAX would tile
 (`ops.fused_convnext.kernel_takes`, its `pick_tile` rule) runs as one call
-of `ops.fused_convnext.convnext_block_fused`: the CUDA kernel on the card,
-its twin on the CPU; any other block runs unfused, unless the caller
-passes `any_length=True` (the streaming windows, whose length JAX's rule
-does not tile: B1 takes any T). In training
+of `ops.fused_convnext.convnext_block_fused`, B1's registered op: the CUDA
+kernel on the card, its twin on the CPU; any other block runs unfused,
+unless the caller passes `any_length=True` (the streaming windows, whose
+length JAX's rule does not tile: B1 takes any T). In training
 mode the blocks run unfused, with drop path drawn from the caller's
 `torch.Generator`, as in JAX (fused only when deterministic). Submodule
 names follow the reference's torch keys (`convnext.{i}.dwconv.weight`,
@@ -56,6 +56,8 @@ class ConvNeXtBlock(nn.Module):
         else:
             self.gamma = None
         self._fused_cache = None
+        # set only while an exported graph is traced (export/exporter.py)
+        self.given_fused_params = None
 
     def forward(self, x, fused: bool = False, generator: Optional[torch.Generator] = None,
                 any_length: bool = False):
@@ -79,7 +81,13 @@ class ConvNeXtBlock(nn.Module):
         the kernel's packed weights (`kernel_weights(w1, w2)`).
 
         Computed once and kept on the module; rebuilt when a parameter moves
-        or is written in place (its storage or version changes)."""
+        or is written in place (its storage or version changes). While an
+        exported graph is traced, `given_fused_params` holds these tensors
+        as the graph's own inputs, prepared once into the artifact: they are
+        returned as they are, and the cache, keyed on storage, stays out of
+        the trace."""
+        if self.given_fused_params is not None:
+            return self.given_fused_params
         params = (self.dwconv.weight, self.dwconv.bias, self.norm.weight, self.norm.bias,
                   self.pwconv1.weight, self.pwconv1.bias, self.pwconv2.weight,
                   self.pwconv2.bias, self.gamma)

@@ -33,6 +33,41 @@ def _pcm16(wav: torch.Tensor) -> torch.Tensor:
 _WIRE_ENCODERS = {"pcm16": _pcm16, "mulaw": mulaw_encode}
 
 
+def upsample(gen, x, x_lengths, sids, lids, d, p, e, n_frames: int):
+    """A stream's token-rate stage: frames (B, n_frames, C), frame-level
+    pitch (or None) and the lengths capped at n_frames, as the generator's
+    `decode` forms them."""
+    enc = gen.encode(x, x_lengths, sids, lids, d, p, e)
+    y_lengths = torch.clamp(enc["y_lengths"], max=n_frames)
+    y_mask = sequence_mask(y_lengths, n_frames)
+    frames = gaussian_upsample(enc["hidden"], enc["durations"].float(), y_mask, enc["x_mask"])
+    f0 = None
+    if gen.cfg.vocoder.f0_cond:
+        # the f0-conditioned vocoder's pitch, expanded as `decode` does
+        f0, _ = expand_by_duration(enc["pitch"][..., None], enc["durations"], n_frames)
+        f0 = f0[..., 0] * y_mask.to(f0.dtype)
+    return frames, f0, y_lengths
+
+
+def decode_window(gen, frames, f0, padding_mask):
+    """A stream's frame-rate stage on one window: decoder and vocoder, float32
+    audio out. Frames outside the utterance are PAD for both stages, so the
+    windows at its edges reproduce the full decode's zero padding. A fused
+    model runs its fused blocks at the window's length, which JAX's tile
+    rule does not take (352 frames at the defaults), since B1 takes any T;
+    JAX runs its windows unfused."""
+    y = gen.decoder(frames, padding_mask, any_length=True)
+    return gen.vocoder(y, f0=f0, padding_mask=padding_mask, any_length=True).float()
+
+
+def window_lengths(chunk: int, overlap: int) -> list[int]:
+    """The window lengths that `StreamingSynthesiser.stream` runs: the
+    windows that start before frame `overlap` begin at frame 0 (less left
+    context), every later one holds chunk + 2 * overlap frames."""
+    return sorted({s + chunk + overlap for s in range(0, overlap, chunk)}
+                  | {chunk + 2 * overlap})
+
+
 class StreamingSynthesiser:
     """Wraps an OptiSpeech model with a chunked frame-rate pipeline."""
 
@@ -43,31 +78,14 @@ class StreamingSynthesiser:
         self.overlap = overlap
         self.window = chunk_frames + 2 * overlap
         self.hop = api.hop_length
-        self.f0_cond = self.gen.cfg.vocoder.f0_cond
 
+    # the two stages, which an exported artifact's streamer takes from its
+    # graphs (export/exporter.py::ExportedStreamingSynthesiser)
     def _upsample(self, x, x_lengths, sids, lids, d, p, e, n_frames: int):
-        """Frames (B, n_frames, C), frame-level pitch (or None) and the
-        lengths capped at n_frames, as the generator's `decode` forms them."""
-        enc = self.gen.encode(x, x_lengths, sids, lids, d, p, e)
-        y_lengths = torch.clamp(enc["y_lengths"], max=n_frames)
-        y_mask = sequence_mask(y_lengths, n_frames)
-        frames = gaussian_upsample(enc["hidden"], enc["durations"].float(), y_mask,
-                                   enc["x_mask"])
-        f0 = None
-        if self.f0_cond:
-            # the f0-conditioned vocoder's pitch, expanded as `decode` does
-            f0, _ = expand_by_duration(enc["pitch"][..., None], enc["durations"], n_frames)
-            f0 = f0[..., 0] * y_mask.to(f0.dtype)
-        return frames, f0, y_lengths
+        return upsample(self.gen, x, x_lengths, sids, lids, d, p, e, n_frames)
 
     def _chunk(self, frames, f0, padding_mask):
-        # frames outside the utterance are PAD for both stages, so the
-        # windows at its edges reproduce the full decode's zero padding. A
-        # fused model runs its fused blocks at the window's length, which
-        # JAX's tile rule does not take (352 frames at the defaults), since
-        # B1 takes any T; JAX runs its windows unfused
-        y = self.gen.decoder(frames, padding_mask, any_length=True)
-        return self.gen.vocoder(y, f0=f0, padding_mask=padding_mask, any_length=True).float()
+        return decode_window(self.gen, frames, f0, padding_mask)
 
     @staticmethod
     def _start_fetch(audio: torch.Tensor):

@@ -29,6 +29,23 @@ w1 (C, I), w2 (I, C). Both blocks compute the GELU as the JAX kernels do,
   twin for a CPU tensor; `<wrapper>.launches` counts kernel launches
   (`convnext_block_fused.wide_launches` those of B1's wide path), under a
   lock, since a server launches from several threads.
+- B1 is also a registered op, `torch.ops.optispeech_tpu_torch.
+  convnext_block_fused` (`OP_NAME`, `_convnext_block_op`), which its wrapper
+  calls: the twin for a CPU tensor, `convnext_block_launch` (which counts
+  the launch) for a CUDA tensor, the dispatcher's error on any other
+  device, and `empty_like(x)` as its fake. A `torch.export` trace records it as one
+  opaque node, so the fused model's live path and an exported graph's
+  replay reach B1 the same way, and an artifact replays B1's twin on the
+  CPU and its kernel on the card. The op takes the pack as an input
+  (option (a) of the two ways to keep the card from packing per call): the
+  live model keeps it with the block's other prepared parameters
+  (`ConvNeXtBlock.fused_params`), and the exporter stores them once in the
+  artifact's parameter file (`export/exporter.py`). Caching the pack by the
+  weights' identity inside the op, under a lock, was the other way; it was
+  not taken because an identity key can outlive its weights (a freed
+  tensor's storage taken by another model's) and because an explicit input
+  keeps the graph a pure function of its inputs. B2 is not an op: no
+  exported graph runs it.
 - The kernels are built with nvcc into `build/` beside the package at first
   use and loaded with ctypes (`ops/_build.py`).
 """
@@ -51,6 +68,8 @@ CHANNELS = range(1, WIDE_MAX_CHANNELS + 1)
 I_CHUNK = 64  # B1 walks I in chunks of this width
 PADDED_CHANNELS = tuple(range(I_CHUNK, MAX_CHANNELS + 1, I_CHUNK))  # B1's instantiations
 INV_SQRT2 = 1.0 / math.sqrt(2.0)
+# B1's registered op; exported graphs record it by this name
+OP_NAME = "optispeech_tpu_torch::convnext_block_fused"
 
 
 def _div(num, den):
@@ -121,6 +140,10 @@ def _bf16_matmul(a, w):
 def convnext_block_fused(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma, *, packed=None):
     """Apply one ConvNeXt block; the kernel on the card, the twin on the CPU.
 
+    A thin wrapper over the registered op `torch.ops.optispeech_tpu_torch.
+    convnext_block_fused` (`_convnext_block_op`), which a `torch.export`
+    trace records as one node; any device but the CPU and the card raises.
+
     Args:
         x: (B, T, C) float32 or bfloat16, any T >= 1.
         dw: (7, C) depthwise kernel; dwb, lnw, lnb, b2, gamma: (C,).
@@ -133,14 +156,43 @@ def convnext_block_fused(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma, *, packed=
 
     Returns (B, T, C) in x's dtype.
     """
+    if packed is None:
+        packed = (kernel_weights(w1, w2) if x.device.type == "cuda"
+                  else x.new_empty(0, dtype=torch.bfloat16))
+    return _OP(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma, packed)
+
+
+def _convnext_block_op(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma, packed):
+    """B1's registered op, for CPU and CUDA tensors: the twin for a CPU
+    tensor (`packed` unused), the kernel for a CUDA tensor
+    (`convnext_block_launch`, which counts the launch). The dispatcher has
+    no kernel of it for any other device and raises there. A trace sees its
+    fake (an empty tensor like x) and records one node, which replays
+    through this function on the device the graph is moved to."""
     if x.device.type == "cpu":
         return convnext_block_reference(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma)
-    if x.device.type != "cuda":
-        raise ValueError(f"convnext_block_fused: no kernel for device {x.device}")
     _check_args(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma)
-    if packed is None:
-        packed = kernel_weights(w1, w2)
     return convnext_block_launch(x, dw, dwb, lnw, lnb, packed, b1, b2, gamma)
+
+
+# Registered through `torch.library.Library`, not `torch.library.custom_op`:
+# the latter wraps its kernels so that their first call imports
+# torch._dynamo, which cost a fresh `cli/infer.py --fused` seconds of
+# latency on the card (chip_smoke.py phase 15(d))
+_LIBRARY = torch.library.Library(OP_NAME.split("::")[0], "DEF")
+_LIBRARY.define(OP_NAME.split("::")[1] + "(Tensor x, Tensor dw, Tensor dwb, Tensor lnw, "
+                "Tensor lnb, Tensor w1, Tensor b1, Tensor w2, Tensor b2, Tensor gamma, "
+                "Tensor packed) -> Tensor")
+for _key in ("CPU", "CUDA"):
+    _LIBRARY.impl(OP_NAME.split("::")[1], _convnext_block_op, _key)
+
+
+@torch.library.register_fake(OP_NAME)
+def _convnext_block_fake(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma, packed):
+    return torch.empty_like(x)
+
+
+_OP = torch.ops.optispeech_tpu_torch.convnext_block_fused.default
 
 
 convnext_block_fused.launches = 0

@@ -54,6 +54,56 @@ def test_twin_matches_jax_interpret_kernel(t_tile):
     np.testing.assert_allclose(got.numpy(), np.asarray(expect), atol=ATOL)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("packed", [False, True])
+def test_op_runs_the_twin_bit_for_bit_on_the_cpu(dtype, packed):
+    """B1's registered op (`torch.ops.optispeech_tpu_torch.convnext_block_fused`)
+    and its wrapper give `convnext_block_reference` bit for bit on CPU
+    tensors, with or without the pack, and launch nothing."""
+    x, p = _block_args(np.random.default_rng(5), 2, 70, 192, 768, dtype)
+    p[4], p[6] = p[4].bfloat16(), p[6].bfloat16()
+    pack = fc.kernel_weights(p[4], p[6]) if packed else torch.empty(0, dtype=torch.bfloat16)
+    launches = fc.convnext_block_fused.launches
+    ref = fc.convnext_block_reference(x, *p)
+    op = torch.ops.optispeech_tpu_torch.convnext_block_fused(x, *p, pack)
+    wrapped = fc.convnext_block_fused(x, *p, packed=pack if packed else None)
+    assert op.dtype == dtype and torch.equal(op, ref) and torch.equal(wrapped, ref)
+    assert fc.convnext_block_fused.launches == launches
+
+
+def test_op_is_registered_with_a_fake_and_checks_out():
+    """The op's schema, its fake (an empty tensor like x, on the meta
+    device too) and its dispatch pass `torch.library.opcheck`; on a device
+    that is neither the CPU nor the card it raises."""
+    x, p = _block_args(np.random.default_rng(6), 1, 9, 64, 128)
+    p[4], p[6] = p[4].bfloat16(), p[6].bfloat16()
+    args = (x, *p, fc.kernel_weights(p[4], p[6]))
+    torch.library.opcheck(torch.ops.optispeech_tpu_torch.convnext_block_fused.default, args)
+    meta = torch.ops.optispeech_tpu_torch.convnext_block_fused(*(a.to("meta") for a in args))
+    assert meta.device.type == "meta" and meta.shape == x.shape and meta.dtype == x.dtype
+    assert fc.OP_NAME == "optispeech_tpu_torch::convnext_block_fused"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_op_launches_the_kernel_on_cuda(cuda, dtype):
+    """On CUDA tensors B1's op launches the kernel once (counted inside the
+    op), bit for bit what `convnext_block_launch` gives on the same pack,
+    and passes `torch.library.opcheck` there too."""
+    x, p = _block_args(np.random.default_rng(8), 2, 130, 256, 1024, dtype)
+    x = x.to(cuda)
+    p = [q.to(cuda) for q in p]
+    p[4], p[6] = p[4].bfloat16(), p[6].bfloat16()
+    pack = fc.kernel_weights(p[4], p[6])
+    launches = fc.convnext_block_fused.launches
+    got = torch.ops.optispeech_tpu_torch.convnext_block_fused(x, *p, pack)
+    torch.cuda.synchronize()
+    assert fc.convnext_block_fused.launches == launches + 1
+    direct = fc.convnext_block_launch(x, *p[:4], pack, p[5], p[7], p[8])
+    assert torch.equal(got, direct)
+    torch.library.opcheck(torch.ops.optispeech_tpu_torch.convnext_block_fused.default,
+                          (x, *p, pack))
+
+
 def test_twin_gelu_is_the_jax_kernels():
     """`gelu_erf` against `_block_kernel`'s expression (pallas_convnext.py:74)
     on [-8, 8], within one float32 ulp of |x|: the two differ only where

@@ -13,8 +13,10 @@
   with a stub model and no JAX; `prewarm` runs JAX's keys and calls.
 - /stream matches the batch output within 64 steps
   (tests/test_serve.py:206) and its µ-law decodes above 25 dB SNR.
-- `load_model` refuses an exported artifact; `main` without `--device`
-  and without a card raises; the first kernel build and the launch counts
+- An exported artifact (`export/exporter.py`): /synthesise in each format
+  equal to its own replay, coalescing, /info from its metadata, /stream
+  from its stream graphs, and 501 on /stream without them; `main` without
+  `--device` and without a card raises; the first kernel build and the launch counts
   hold across threads.
 - On the card only: a server on the card against the CPU model, with
   chip_smoke.py phase 16(c)'s bounds.
@@ -425,10 +427,139 @@ def test_stream_matches_batch_output(pair):
         _stop(httpd)
 
 
-def test_load_model_refuses_an_exported_artifact(tmp_path):
-    (tmp_path / "metadata.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        port_serve.load_model(str(tmp_path), device="cpu")
+@pytest.fixture(scope="module")
+def artifact(pair, tmp_path_factory):
+    """The fused artifact of `pair`'s weights (text buckets 32 and 64, batch
+    rungs 1, 2 and 4, stream windows of 16 frames with 16 of overlap) and
+    a server on it: (runtime, base URL, server)."""
+    from optispeech_tpu_torch.export.exporter import export_model
+    from optispeech_tpu_torch.models.optispeech import with_fused_blocks
+
+    tapi = pair[1]
+    fused = OptiSpeech(with_fused_blocks(tapi.cfg), device="cpu",
+                       state_dict=tapi.generator.state_dict())
+    path = str(tmp_path_factory.mktemp("artifact"))
+    export_model(fused, path, text_buckets=(32, 64), frames_per_token=8, batch_sizes=(1, 2, 4),
+                 stream_chunk_frames=16, stream_overlap=16)
+    model = port_serve.load_model(path, bf16=True, device="cpu")  # bf16 is the live model's
+    httpd = port_serve.serve(model, host="127.0.0.1", port=0, max_batch=4, batch_wait_ms=300.0)
+    base = _start(httpd)
+    yield model, base, httpd
+    _stop(httpd)
+
+
+def _artifact_pcm(model, text):
+    """The artifact's own replay of `text`, as the server's pcm16 rows."""
+    out = model.synthesise(model.prepare_input(text, split_sentences=True))
+    rows = [np.clip(w, -1, 1) for w in out.unbatched_wavs()]
+    return np.concatenate([(r * 32767.0).astype("<i2") for r in rows])
+
+
+@pytest.mark.parametrize("fmt", ["wav", "pcm16", "mulaw", "json"])
+def test_artifact_server_answers_each_format(artifact, fmt):
+    """/synthesise on an artifact: its own replay's audio in each format,
+    the wire transcoded on the host; nothing truncated."""
+    from scipy.io import wavfile
+
+    from optispeech_tpu_torch.export.exporter import ExportedOptiSpeech
+    from optispeech_tpu_torch.ops.mulaw import mulaw_encode_np
+
+    model, base, _ = artifact
+    assert isinstance(model, ExportedOptiSpeech) and model._rungs == {32: [1, 2, 4],
+                                                                      64: [1, 2, 4]}
+    code, headers, body = _post(base, {"text": TEXT, "format": fmt})
+    assert code == 200 and "X-Truncated" not in headers
+    want = _artifact_pcm(model, TEXT)
+    if fmt == "wav":
+        assert headers["Content-Type"] == "audio/wav"
+        sr, got = wavfile.read(io.BytesIO(body))
+        assert sr == model.sample_rate
+    elif fmt == "pcm16":
+        assert int(headers["X-Sample-Rate"]) == model.sample_rate
+        got = np.frombuffer(body, "<i2")
+    elif fmt == "json":
+        obj = json.loads(body)
+        assert obj["truncated"] is False and obj["latency_ms"] > 0
+        got = _pcm(body)
+    else:
+        assert headers["X-Encoding"] == "mulaw"
+        got = np.frombuffer(body, np.uint8)
+        out = model.synthesise(model.prepare_input(TEXT, split_sentences=True))
+        want = np.concatenate([mulaw_encode_np(w) for w in out.unbatched_wavs()])
+    np.testing.assert_array_equal(got, want)
+
+
+def test_artifact_server_coalesces_and_matches_the_live_model(pair, artifact):
+    """Concurrent requests coalesce into batches up the artifact's rungs,
+    each answer as one request's alone; the artifact's answer is the live
+    model's within 64 steps (tests/test_serve.py:303, JAX's bound for an
+    artifact against the live model at another frame count)."""
+    model, base, httpd = artifact
+    single = _pcm(_post(base, {"text": SHORT, "format": "json"})[2])
+    b0, r0 = httpd.batcher.batches_run, httpd.batcher.requests_served
+    results = _concurrently(base, [{"text": SHORT, "format": "json"}] * 3)
+    assert all(code == 200 for code, _, _ in results)
+    assert httpd.batcher.requests_served - r0 == 3
+    assert httpd.batcher.batches_run - b0 < 3
+    for _, _, body in results:
+        got = _pcm(body)
+        assert len(got) == len(single)
+        assert np.abs(got.astype(int) - single.astype(int)).max() <= PCM16_STEPS
+    live = pair[1].synthesise(pair[1].prepare_input(SHORT))
+    live = (np.clip(live.wav[0, :int(live.wav_lengths[0])], -1, 1) * 32767.0).astype("<i2")
+    assert len(live) == len(single)
+    assert np.abs(live.astype(int) - single.astype(int)).max() <= 64
+
+
+def test_artifact_server_info_comes_from_the_metadata(artifact):
+    model, base, _ = artifact
+    info = _get(base, "/info")
+    meta = model.metadata["inference"]
+    assert info["sample_rate"] == meta["sample_rate"] == model.sample_rate
+    assert info["speakers"] == meta["speakers"] == []
+    assert info["num_speakers"] == meta["num_speakers"] == 1
+    assert info["languages"] == meta["text_processor"]["languages"] == ["en-us"]
+    assert info["max_batch"] == 4
+
+
+@pytest.mark.parametrize("fmt", ["pcm16", "mulaw"])
+def test_artifact_server_streams_from_its_stream_graphs(artifact, fmt):
+    """/stream on an artifact replays its stream graphs: 16-frame chunks
+    within 64 steps of its /synthesise, µ-law above 25 dB SNR."""
+    model, base, httpd = artifact
+    payload = {"text": "hello world this is long", "d_factor": 3.0}
+    code, _, body = _post(base, {**payload, "format": "json"})
+    assert code == 200
+    batch = _pcm(body)
+    code, headers, chunks = _stream(httpd.server_address[1], {**payload, "format": fmt})
+    assert code == 200 and headers["Transfer-Encoding"] == "chunked" and len(chunks) > 2
+    if fmt == "pcm16":
+        assert all(len(c) == 16 * model.hop_length * 2 for c in chunks[:-1])
+        streamed = np.frombuffer(b"".join(chunks), "<i2")
+        assert len(streamed) == len(batch) > 0
+        assert np.abs(streamed.astype(int) - batch.astype(int)).max() <= 64
+    else:
+        assert headers["X-Encoding"] == "mulaw"
+        codes = np.frombuffer(b"".join(chunks), np.uint8)
+        assert len(codes) == len(batch)
+        assert _snr_db(batch.astype(np.float32) / 32767.0, mulaw_decode(codes)) > 25.0
+
+
+def test_stream_on_a_streamless_artifact_is_501(pair, tmp_path):
+    from optispeech_tpu_torch.export.exporter import ExportedOptiSpeech, export_model
+
+    export_model(pair[1], str(tmp_path), text_buckets=(32,), frames_per_token=8,
+                 batch_sizes=(1,), stream_chunk_frames=None)
+    model = port_serve.load_model(str(tmp_path), device="cpu")
+    assert isinstance(model, ExportedOptiSpeech) and model.stream_meta is None
+    httpd = port_serve.serve(model, host="127.0.0.1", port=0)
+    try:
+        base = _start(httpd)
+        code, _, body = _post(base, {"text": SHORT}, path="/stream")
+        assert code == 501 and "no stream graphs" in json.loads(body)["error"]
+        assert _post(base, {"text": SHORT, "format": "json"})[0] == 200  # /synthesise serves
+    finally:
+        _stop(httpd)
 
 
 def test_serve_needs_a_device_without_a_card(pair, tmp_path, monkeypatch):
