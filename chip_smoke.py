@@ -172,7 +172,21 @@ Phases, each of which fails the run on any error:
      window, within 64 steps of the artifact's /synthesise); (e) phase 4's
      bench-shape figure through B1's registered op and with B1 launched
      directly (its binding before it became an op), in turns, beside the
-     figure recorded before the op (observations).
+     figure recorded before the op (observations);
+ 18. the other backbone kinds at full width, for configs/light.yaml,
+     transformer.yaml, conformer.yaml and the default with LeanSpeech
+     stacks (en-g2p, weights from the port's seeded initialisation, fused:
+     the WaveNeXt trunk alone): (a) synthesise_on_device at bench shape,
+     median of 5 calls, B1 8 times per decode; the same model on the card
+     and on the CPU (B1's twin) on the bench inputs' first OTHER_ROWS rows
+     at its 1792 frames: durations equal, wav within WAV_ATOL; (b) phase
+     7's training batch, 1 warm-up and 3 timed steps (B3 once per step),
+     their median ms and the peak memory; a step and a validation with no
+     dropout at phase 8's size on the card and on the CPU from one state:
+     durations equal, every log within STEP_LOG_RTOL, B3 and B4 once each
+     on the card; (c) for the light config, its weights saved with
+     `OptiSpeech.save_checkpoint` and `cli/infer.py --fused` on the card:
+     B1 8 times, a finite wav per sentence of frames x hop samples.
 The kernels build in parallel (one nvcc per source, five sources and the probe).
 Prints the kernels' JSON line and the card line, and as its last line
 {"ok": true, "device": {...}}. Without a card, or without the repo beside
@@ -251,6 +265,13 @@ WORKFLOW_CONFIG = ["data.text_processor.tokenizer=en-g2p"]
 # BF16_STEP_LOG_RTOL (tests/test_torch_bf16_train.py: at most 1.2e-2).
 BF16_WAV_RTOL = 3e-2
 BF16_STEP_LOG_RTOL = 2e-2
+# phase 18: the other backbone kinds, each a config and its overrides
+OTHER_BACKBONES = {
+    "light": ("light", []), "transformer": ("transformer", []),
+    "conformer": ("conformer", []),
+    "leanspeech": ("default", ["generator.encoder.kind=leanspeech",
+                               "generator.decoder.kind=leanspeech"])}
+OTHER_ROWS = 4  # phase 18(a): card against CPU on the bench inputs' first rows
 
 
 T0 = [0.0]  # the script's start on the host clock, set by main
@@ -515,11 +536,12 @@ def flagship_config(fused=True):
     return with_fused_blocks(cfg) if fused else cfg
 
 
-def bench_inputs():
+def bench_inputs(batch=BENCH["batch"]):
+    """bench.py's inputs; with `batch` their first rows."""
     from optispeech_tpu_torch.values import InferenceInputs
 
     rng = np.random.default_rng(0)
-    n, b = BENCH["n_tokens"], BENCH["batch"]
+    n, b = BENCH["n_tokens"], batch
     ids = [rng.integers(3, 150, n).astype(np.int64).tolist() for _ in range(b)]
     return InferenceInputs.from_ids_and_lengths(ids=ids, lengths=[n] * b, clean_text="bench",
                                                 d_factor=BENCH["d_factor"], p_factor=1.0,
@@ -803,14 +825,21 @@ def training_config(pretraining_steps=0, dropout=True, compute_dtype="float32"):
     cfg = ExperimentConfig()
     cfg = dataclasses.replace(cfg, train_args=dataclasses.replace(
         cfg.train_args, pretraining_steps=pretraining_steps, compute_dtype=compute_dtype))
-    if dropout:
-        return cfg
+    return cfg if dropout else without_dropout(cfg)
+
+
+def without_dropout(cfg):
+    """`cfg` with every dropout and drop-path rate at 0, the backbones' own
+    (attention, positions) included."""
+    import dataclasses
+
     g = cfg.generator
     zero = lambda v: dataclasses.replace(v, dropout=0.0, embed_dropout=0.0)  # noqa: E731
+    stack = lambda b: dataclasses.replace(  # noqa: E731
+        b, drop_path=0.0, dropout=0.0, attention_dropout_rate=0.0, positional_dropout_rate=0.0)
     g = dataclasses.replace(
         g, text_embedding=dataclasses.replace(g.text_embedding, dropout=0.0),
-        encoder=dataclasses.replace(g.encoder, drop_path=0.0),
-        decoder=dataclasses.replace(g.decoder, drop_path=0.0),
+        encoder=stack(g.encoder), decoder=stack(g.decoder),
         vocoder=dataclasses.replace(g.vocoder, drop_path=0.0),
         duration_predictor=zero(g.duration_predictor), pitch_predictor=zero(g.pitch_predictor),
         energy_predictor=zero(g.energy_predictor))
@@ -2422,6 +2451,183 @@ def bench_through_the_op(fc, ckpt):
     return dict(op_ms=ms["op"], direct_ms=ms["direct"], rounds=arms, pre_op_ms=PRE_OP_BENCH_MS)
 
 
+# -- phase 18: the other backbone kinds -----------------------------------------
+
+
+def other_config(name):
+    """OTHER_BACKBONES[name] as the user loads it, with the en-g2p front end,
+    D trained from the first step."""
+    from optispeech_tpu_torch.utils.yamlcfg import load_experiment
+
+    base, overrides = OTHER_BACKBONES[name]
+    return load_experiment(base, WORKFLOW_CONFIG + overrides + ["train_args.pretraining_steps=0"])
+
+
+def other_synthesis(fc, mas, name, cfg):
+    """(a) Returns the fused model, B1's launches per decode and the bench
+    median ms."""
+    from optispeech_tpu_torch.models.optispeech import OptiSpeech, with_fused_blocks
+
+    api = OptiSpeech(with_fused_blocks(cfg), seed=0, device="cuda")
+    g = api.cfg.generator
+    assert not g.decoder.fused_pallas and g.vocoder.fused_pallas
+    n_params = sum(p.numel() for p in api.generator.parameters())
+    inputs, n_frames = bench_inputs(), BENCH["n_frames"]
+    fc.convnext_block_fused.launches = 0
+    mas.viterbi_decode.launches = mas.viterbi_decode_extract.launches = 0
+    o = api.synthesise_on_device(inputs, n_frames, pcm16=True)  # warm-up
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        o = api.synthesise_on_device(inputs, n_frames, pcm16=True)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    launches = fc.convnext_block_fused.launches
+    assert launches == 8 * 6, f"{name}: expected 8 B1 launches per decode, got {launches} in 6"
+    assert mas.viterbi_decode.launches == mas.viterbi_decode_extract.launches == 0
+    wav = o["wav"]
+    assert wav.shape == (BENCH["batch"], n_frames * api.hop_length)
+    assert bool(torch.isfinite(wav).all()), f"{name}: non-finite samples"
+    ms = statistics.median(walls)
+    audio_s = float(o["wav_lengths"].sum()) / api.sample_rate
+    print(f"  (a) {name}: encoder/decoder {g.encoder.kind}, {n_params} parameters; "
+          f"synthesise_on_device at bench shape: median {ms:.2f} ms over 5 calls (min "
+          f"{min(walls):.2f}), {audio_s:.2f} s of audio; B1 {launches // 6} per decode",
+          flush=True)
+
+    cpu_api = OptiSpeech(api.cfg, device="cpu",
+                         state_dict={k: v.cpu() for k, v in api.generator.state_dict().items()})
+    rows = bench_inputs(OTHER_ROWS)
+    gpu, cpu = api.synthesise_on_device(rows, n_frames), cpu_api.synthesise_on_device(rows,
+                                                                                     n_frames)
+    dur_equal = torch.equal(gpu["durations"].cpu(), cpu["durations"])
+    wav_diff = float((gpu["wav"].cpu() - cpu["wav"]).abs().max())
+    print(f"      card against CPU, {OTHER_ROWS} rows at {n_frames} frames: durations equal "
+          f"{dur_equal}; wav max|card - cpu| {wav_diff:.3e} (atol {WAV_ATOL})", flush=True)
+    assert dur_equal, f"{name}: durations differ between card and CPU"
+    assert wav_diff <= WAV_ATOL, f"{name}: wav differs between card and CPU by {wav_diff}"
+    return api, launches // 6, ms
+
+
+def other_training(mas, name, cfg):
+    """(b) Returns the step ms, the peak GiB and the B3 / B4 launches."""
+    from optispeech_tpu_torch.training.state import init_train_state
+    from optispeech_tpu_torch.training.step import make_train_step, make_val_step
+
+    state = init_train_state(cfg, "cuda", seed=0)
+    t_text, t_mel = MAS_SHAPE[2], MAS_SHAPE[1]
+    batch = training_batch(cfg, cfg.data.batch_size, t_text, t_mel, "cuda")
+    step = make_train_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    mas.viterbi_decode.launches = 0
+    walls = []
+    for i in range(4):
+        t0 = time.perf_counter()
+        logs = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        bad = [k for k, v in logs.items() if not bool(torch.isfinite(v))]
+        assert not bad, f"{name} step {i}: non-finite logs {bad}"
+    b3 = mas.viterbi_decode.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    assert b3 == 4, f"{name}: expected one B3 launch per step, got {b3} in 4"
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  (b) {name}: batch {cfg.data.batch_size}, {t_text} tokens, {t_mel} frames: steps "
+          f"{', '.join(f'{w:.1f}' for w in walls)} ms (the first a warm-up), peak memory "
+          f"{peak:.2f} GiB; B3 {b3} in 4 steps", flush=True)
+
+    quiet = without_dropout(cfg)
+    states = {dev: init_train_state(quiet, dev, seed=0) for dev in ("cuda", "cpu")}
+    for part in ("generator", "discriminator"):
+        sd = getattr(states["cuda"], part).state_dict()
+        getattr(states["cpu"], part).load_state_dict({k: v.cpu() for k, v in sd.items()})
+    batches = {dev: training_batch(quiet, 4, 32, 128, dev, seed=1) for dev in states}
+    keys = ("x", "x_lengths", "mel", "mel_lengths", "pitches", "energies")
+    durations, logs, val_logs = {}, {}, {}
+    mas.viterbi_decode.launches = mas.viterbi_decode_extract.launches = 0
+    t0 = time.perf_counter()
+    for dev, st in states.items():
+        b = batches[dev]
+        st.generator.eval()
+        with torch.no_grad():
+            durations[dev] = st.generator(*[b[k] for k in keys],
+                                          start_idx=b["start_idx"])["durations"].cpu()
+        if dev == "cuda":
+            launches_before = mas.viterbi_decode.launches
+        logs[dev] = make_train_step(quiet)(st, b)
+        if dev == "cuda":
+            b3_step = mas.viterbi_decode.launches - launches_before
+        val_logs[dev] = make_val_step(quiet)(st, b)[0]
+        if dev == "cuda":
+            b4 = mas.viterbi_decode_extract.launches
+    cross_s = time.perf_counter() - t0
+    dur_equal = torch.equal(durations["cuda"], durations["cpu"])
+    gaps = {}
+    for tag, pair in (("train", logs), ("val", val_logs)):
+        for k in pair["cpu"]:
+            ref = float(pair["cpu"][k])
+            gaps[f"{tag} {k}"] = abs(float(pair["cuda"][k]) - ref) / max(abs(ref), 1e-12)
+    worst = max(gaps, key=gaps.get)
+    print(f"      card against CPU, batch 4, 32 tokens, 128 frames, no dropout: durations equal "
+          f"{dur_equal}; largest relative log gap {gaps[worst]:.2e} ({worst}; rtol "
+          f"{STEP_LOG_RTOL}); B3 {b3_step} in the step, B4 {b4} in the validation "
+          f"({cross_s:.1f} s)", flush=True)
+    assert dur_equal, f"{name}: MAS durations differ between card and CPU"
+    assert gaps[worst] <= STEP_LOG_RTOL, f"{name}: {worst} differs by {gaps[worst]}"
+    assert b3_step == 1 and b4 == 1, f"{name}: B3 {b3_step} / B4 {b4} on the card"
+    return statistics.median(walls[1:]), peak, b3 + b3_step, b4
+
+
+def other_cli(fc, api):
+    """(c) `cli/infer.py --fused` on the card on the light model's weights,
+    saved with `OptiSpeech.save_checkpoint`; returns B1's launches."""
+    import shutil
+    import tempfile
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_light_"))
+    try:
+        api.save_checkpoint(str(root / "ckpt"))
+        fc.convnext_block_fused.launches = 0
+        out, wavs = workflow_infer(root / "ckpt", root / "wavs")
+        launches = fc.convnext_block_fused.launches
+        check_wavs(out, wavs, api.hop_length, "light cli/infer.py --fused")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"  (c) light: cli/infer.py --fused on the card: {len(wavs)} wavs, "
+          f"{int(out.durations.sum())} frames, latency {out.latency:.2f} ms; B1 {launches}",
+          flush=True)
+    assert launches == 8, f"cli/infer.py --fused on the light config: B1 {launches}, not 8"
+    return launches
+
+
+def other_backbones(fc, mas):
+    """Phase 18: returns, by config, the bench ms, B1 per decode, the step
+    ms, peak GiB and the B3 / B4 launches, and the light CLI's B1."""
+    t_phase = time.perf_counter()
+    out = {}
+    for name in OTHER_BACKBONES:
+        t0 = time.perf_counter()
+        cfg = other_config(name)
+        api, b1, bench_ms = other_synthesis(fc, mas, name, cfg)
+        if name == "light":
+            out["cli_b1_launches"] = other_cli(fc, api)
+        del api
+        gc.collect()
+        torch.cuda.empty_cache()
+        step_ms, peak, b3, b4 = other_training(mas, name, cfg)
+        out[name] = dict(bench_ms=bench_ms, b1_launches_per_decode=b1, step_ms=step_ms,
+                         peak_gib=peak, b3_launches=b3, b4_launches=b4,
+                         seconds=time.perf_counter() - t0)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 18 took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2536,6 +2742,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     export = export_replay(fc, serving["stream"]["d_factor"])
 
+    phase("18. the other backbone kinds (light, transformer, conformer, leanspeech): "
+          "synthesis card against CPU, training, cli/infer.py")
+    gc.collect()
+    torch.cuda.empty_cache()
+    others = other_backbones(fc, mas)
+
     trunk = rows["trunk"]
     kernel = {
         "name": "convnext_block_fused", "route": "cuda",
@@ -2555,6 +2767,9 @@ def main() -> int:
             "serve_decode_replays": export["serve"]["calls"],
             "serve_stream_windows": export["serve"]["stream"]["windows"],
             "serve_stream": export["serve"]["stream"]["b1_launches"]},
+        "launches_other_backbones": {
+            **{name: others[name]["b1_launches_per_decode"] for name in OTHER_BACKBONES},
+            "unit": "per fused decode", "light_cli_infer": others["cli_b1_launches"]},
         "max_abs_err": max_abs_err["narrow"],
         "ms": trunk["ms"], "plain_ms": trunk["plain_ms"], "bound_ms": trunk["bound_ms"],
         "bound_by": trunk["bound_by"], "library_ms": trunk["library_ms"],
@@ -2586,6 +2801,7 @@ def main() -> int:
         "launches": trainer_launches["viterbi_decode"],
         "launch_path": "phase 10, the trainer (5 steps)", "launches_phase_7": mas_launches,
         "launches_bf16_steps": bf16["b3_launches"],
+        "launches_other_backbones": {name: others[name]["b3_launches"] for name in OTHER_BACKBONES},
         "max_abs_err": mas_err["durations"],
         "ms": mas_row["ms"], "plain_ms": mas_row["plain_ms"], "bound_ms": mas_row["bound_ms"],
         "bound_by": mas_row["bound_by"], "library_ms": None, "shape": mas_row["shape"],
@@ -2600,6 +2816,7 @@ def main() -> int:
         "launches": trainer_launches["viterbi_decode_extract"],
         "launch_path": "phase 10, the trainer (1 validation of 1 batch)",
         "launches_bf16_val": bf16["b4_launches"],
+        "launches_other_backbones": {name: others[name]["b4_launches"] for name in OTHER_BACKBONES},
         "max_abs_err": ext_err["durations"],
         "ms": ext_row["ms"], "plain_ms": ext_row["plain_ms"], "bound_ms": ext_row["bound_ms"],
         "bound_by": ext_row["bound_by"], "library_ms": None, "shape": ext_row["shape"],
@@ -2627,6 +2844,7 @@ def main() -> int:
     print("\n  bf16: " + json.dumps(bf16))
     print("\n  serving: " + json.dumps(serving))
     print("\n  export: " + json.dumps(export))
+    print("\n  other backbones: " + json.dumps(others))
     print(f"\n  build {build_s:.1f} s; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [kernel, wide_kernel, mas_kernel, extract_kernel, int8_kernel]}))
     print(card)

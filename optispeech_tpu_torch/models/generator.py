@@ -34,6 +34,7 @@ from ..ops import (
 )
 from .losses import fastspeech2_loss
 from .modules.alignment import AlignmentModule
+from .modules.conformer import ConformerBackbone
 from .modules.convnext import ConvNeXtBackbone
 from .modules.core import (
     DurationPredictor,
@@ -42,6 +43,9 @@ from .modules.core import (
     PitchPredictor,
     TextEmbedding,
 )
+from .modules.leanspeech import LeanSpeechBackbone
+from .modules.lightspeech import LightSpeechTransformerDecoder, LightSpeechTransformerEncoder
+from .modules.transformer import TransformerBackbone
 from .vocoder.wavenext import WaveNeXt
 
 
@@ -54,14 +58,29 @@ def compute_dtype(name: str) -> torch.dtype:
     return dtypes[name]
 
 
-def make_backbone(cfg, dim, dtype=torch.float32):
+def make_backbone(cfg, dim, dtype=torch.float32, is_decoder=False):
+    """The encoder or decoder stack of `cfg.kind`: convnext, lightspeech (its
+    decoder adds positions), transformer, conformer or leanspeech."""
     if cfg.kind == "convnext":
         return ConvNeXtBackbone(dim, cfg.intermediate_dim, cfg.num_layers,
                                 cfg.layer_scale_init_value, fused_pallas=cfg.fused_pallas,
                                 drop_path=cfg.drop_path, dtype=dtype)
-    raise NotImplementedError(
-        f"backbone kind `{cfg.kind}` is not ported yet (ROADMAP.md, queue A item 5)"
-    )
+    if cfg.kind == "lightspeech":
+        cls = LightSpeechTransformerDecoder if is_decoder else LightSpeechTransformerEncoder
+        return cls(dim, tuple(cfg.kernel_sizes), cfg.activation, cfg.dropout, dtype=dtype)
+    if cfg.kind == "transformer":
+        return TransformerBackbone(dim, cfg.attention_heads, cfg.linear_units, cfg.num_blocks,
+                                   cfg.dropout, cfg.positional_dropout_rate,
+                                   cfg.attention_dropout_rate, dtype=dtype)
+    if cfg.kind == "conformer":
+        return ConformerBackbone(dim, cfg.attention_heads, cfg.linear_units, cfg.num_blocks,
+                                 cfg.dropout, cfg.positional_dropout_rate,
+                                 cfg.attention_dropout_rate, cfg.cnn_module_kernel,
+                                 cfg.conv_norm, dtype=dtype)
+    if cfg.kind == "leanspeech":
+        return LeanSpeechBackbone(dim, cfg.kernel_size, cfg.num_layers, cfg.drop_path,
+                                  dtype=dtype)
+    raise ValueError(f"unknown backbone kind {cfg.kind}")
 
 
 class OptiSpeechGenerator(nn.Module):
@@ -73,7 +92,7 @@ class OptiSpeechGenerator(nn.Module):
         self.text_embedding = TextEmbedding(cfg.dim, te.n_vocab, te.padding_idx,
                                             te.max_source_positions, te.dropout, dtype)
         self.encoder = make_backbone(cfg.encoder, cfg.dim, dtype)
-        self.decoder = make_backbone(cfg.decoder, cfg.dim, dtype)
+        self.decoder = make_backbone(cfg.decoder, cfg.dim, dtype, is_decoder=True)
         dp, pp, ep = cfg.duration_predictor, cfg.pitch_predictor, cfg.energy_predictor
         self.duration_predictor = DurationPredictor(
             cfg.dim, dp.num_layers, dp.intermediate_dim, dp.kernel_size, dp.dropout, dp.separable,

@@ -9,8 +9,12 @@ distributions (not the same numbers) with one `torch.Generator`:
   normal, std features**-0.5 (flax `Embed`);
 - separable convs: normal, std sqrt(4 (1 - dropout) / (k * channels));
 - every other conv and dense: lecun normal (flax's default kernel_init);
-- biases zero, LayerNorm weight one; layer scale and the position scale keep
-  the constants their modules set.
+- the LSTMs (flax's OptimizedLSTMCell): input kernels lecun normal, each
+  gate's recurrent kernel orthogonal, biases zero;
+- the Conformer's pos_bias_u / pos_bias_v: xavier uniform;
+- biases zero, LayerNorm weight one, the Conformer's affine conv norm one
+  and zero, the Transformer's positional alpha one (flax's constant);
+  layer scale and the position scale keep the constants their modules set.
 """
 
 import math
@@ -18,8 +22,10 @@ import math
 import torch
 from torch import nn
 
+from .modules.conformer import Affine, RelPosSelfAttention
 from .modules.convnext import ConvNeXtBlock
 from .modules.core import ConvSeparable, TextEmbedding
+from .modules.transformer import ScaledPositionalEncoding
 from .vocoder.wavenext import WaveNeXtHead
 
 # std of a standard normal truncated to [-2, 2], which lecun normal divides by
@@ -52,6 +58,18 @@ def init_like_flax(module: nn.Module, g: torch.Generator) -> None:
             for layer in (m.depthwise_conv, m.pointwise_conv):
                 nn.init.normal_(layer.weight, 0.0, m.init_std, generator=g)
                 done.add(layer)
+        if isinstance(m, RelPosSelfAttention):
+            nn.init.xavier_uniform_(m.pos_bias_u, generator=g)
+            nn.init.xavier_uniform_(m.pos_bias_v, generator=g)
+        if isinstance(m, ScaledPositionalEncoding):
+            nn.init.ones_(m.alpha)
+        if isinstance(m, nn.LSTM):
+            h = m.hidden_size
+            _lecun_normal(m.weight_ih_l0, g)
+            for k in range(4):  # one (H, H) orthogonal kernel per gate, i f g o
+                nn.init.orthogonal_(m.weight_hh_l0[k * h:(k + 1) * h], generator=g)
+            nn.init.zeros_(m.bias_ih_l0)  # a buffer in FlaxLSTM
+            nn.init.zeros_(m.bias_hh_l0)
         if isinstance(m, TextEmbedding):
             nn.init.normal_(m.embed_tokens.weight, 0.0, m.dim ** -0.5, generator=g)
             done.add(m.embed_tokens)
@@ -63,6 +81,6 @@ def init_like_flax(module: nn.Module, g: torch.Generator) -> None:
                 nn.init.zeros_(m.bias)
         elif isinstance(m, nn.Embedding) and m not in done:
             nn.init.normal_(m.weight, 0.0, m.weight.shape[1] ** -0.5, generator=g)
-        elif isinstance(m, nn.LayerNorm):
+        elif isinstance(m, (nn.LayerNorm, Affine)):
             nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)

@@ -1,3 +1,4 @@
+from .conformer import ConformerBackbone
 from .convnext import ConvNeXtBackbone, ConvNeXtBlock
 from .core import (
     ConvSeparable,
@@ -8,6 +9,9 @@ from .core import (
     TextEmbedding,
     VariancePredictor,
 )
+from .leanspeech import LeanSpeechBackbone
+from .lightspeech import LightSpeechTransformerDecoder, LightSpeechTransformerEncoder
+from .transformer import TransformerBackbone
 
 __all__ = [
     "ConvNeXtBackbone",
@@ -19,4 +23,9 @@ __all__ = [
     "PitchPredictor",
     "EnergyPredictor",
     "ScaledSinusoidalEmbedding",
+    "LightSpeechTransformerEncoder",
+    "LightSpeechTransformerDecoder",
+    "TransformerBackbone",
+    "ConformerBackbone",
+    "LeanSpeechBackbone",
 ]

@@ -102,6 +102,46 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return (0.5 * x) * torch.erfc(-x * 0.70703125)
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """flax `nn.sigmoid` (`lax.logistic`): torch's in float32; in bfloat16
+    the form XLA lowers it to on the CPU, `1 / (1 + exp(-x))`, every step
+    rounded to bf16 (torch's bf16 sigmoid rounds once, at the end)."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def glu(x: torch.Tensor) -> torch.Tensor:
+    """flax `nn.glu` on the last axis: the first half times the sigmoid of
+    the second (torch's bf16 GLU would round once)."""
+    a, b = x.chunk(2, dim=-1)
+    return a * sigmoid(b)
+
+
+def softmax(x: torch.Tensor) -> torch.Tensor:
+    """flax `nn.softmax` on the last axis: torch's in float32; in bfloat16
+    JAX's steps, `exp(x - max)` rounded, then divided by its sum, summed in
+    float32 and rounded (torch's bf16 softmax rounds once, at the end)."""
+    if x.dtype == torch.float32:
+        return torch.softmax(x, dim=-1)
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True, dtype=torch.float32).to(x.dtype)
+
+
+def activation(name: str):
+    """flax's activations by the config's name (`nn.gelu` is the tanh
+    approximation)."""
+    return {"relu": F.relu, "gelu": lambda x: F.gelu(x, approximate="tanh"),
+            "tanh": torch.tanh, "sigmoid": sigmoid}[name]
+
+
+def keep_mask(x: torch.Tensor, padding_mask) -> torch.Tensor:
+    """x with its PAD frames zeroed, by a multiply as in JAX."""
+    if padding_mask is None:
+        return x
+    return x * (~padding_mask)[..., None].to(x.dtype)
+
+
 def conv_btc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """Apply an NCW conv module to a (B, T, C) tensor."""
     return conv(x.transpose(1, 2)).transpose(1, 2)

@@ -21,6 +21,7 @@ import torch
 
 from ..ops import expand_by_duration, gaussian_upsample, sequence_mask
 from ..ops.mulaw import mulaw_encode
+from .modules.convnext import ConvNeXtBackbone
 
 # decoder (4 x k7) + vocoder (embed k7 + 8 x k7) one-sided receptive field
 DEFAULT_OVERLAP = 48
@@ -55,8 +56,9 @@ def decode_window(gen, frames, f0, padding_mask):
     windows at its edges reproduce the full decode's zero padding. A fused
     model runs its fused blocks at the window's length, which JAX's tile
     rule does not take (352 frames at the defaults), since B1 takes any T;
-    JAX runs its windows unfused."""
-    y = gen.decoder(frames, padding_mask, any_length=True)
+    JAX runs its windows unfused. The other backbone kinds take any length."""
+    kw = {"any_length": True} if isinstance(gen.decoder, ConvNeXtBackbone) else {}
+    y = gen.decoder(frames, padding_mask, **kw)
     return gen.vocoder(y, f0=f0, padding_mask=padding_mask, any_length=True).float()
 
 
