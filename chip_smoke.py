@@ -186,8 +186,34 @@ Phases, each of which fails the run on any error:
      durations equal, every log within STEP_LOG_RTOL, B3 and B4 once each
      on the card; (c) for the light config, its weights saved with
      `OptiSpeech.save_checkpoint` and `cli/infer.py --fused` on the card:
-     B1 8 times, a finite wav per sentence of frames x hop samples.
-The kernels build in parallel (one nvcc per source, five sources and the probe).
+     B1 8 times, a finite wav per sentence of frames x hop samples;
+ 19. the packed data path and the run tools, in a temporary directory
+     outside the checkout that is deleted after: (a) the host collator
+     (csrc/packed_dataset.cpp, built by the host compiler in phase 2 beside
+     the kernels); (b) phase 10's corpus shape (256 train / 128 val
+     synthetic utterances) written as datafiles, `cli/pack.py` on both
+     splits (the .pak sizes), the packed loader's first 2 batches of 128
+     equal to BucketedCollate's on the same indices, every array bit for
+     bit, and one batch's host-collator ms beside the Python path's; (c)
+     `cli/train.py::run` at phase 10's config (en-g2p), 3 steps and one
+     validation each, from one seed, three ways: the host collator,
+     `--device-cache`, and `--device-cache --cache-mel-dtype bfloat16
+     --cache-wav-dtype int16`, then the host collator again (a run after
+     the same warm-up): B3 once per step, B4 once per val batch, the
+     fit step ms, the cache's bytes (`memory_allocated` around the upload),
+     and step 1's logs of the float32 cache within STEP_LOG_RTOL of the host
+     collator's; (d) `make_cached_scan_step` with K = 2 against two
+     `make_cached_train_step` calls from states of one seed, every log
+     within STEP_LOG_RTOL; (e) `cli/average.py --last 2 --packed-val
+     --compare` on (c)'s float32 cache run (B4 once per val batch in each
+     pass, compare.json holding both), then `cli/infer.py --fused` on the
+     averaged checkpoint (B1 12 times, finite wavs of frames x hop
+     samples); (f) `cli/sweep.py` with 2 trials of 2 steps at test widths on
+     the card, each a fresh `cli.train` process that traces its steps with
+     torch.profiler (B3 counted by name in the trace), each trial's wall
+     seconds.
+The kernels build in parallel (one nvcc per source, five sources and the
+probe), and the host collator beside them.
 Prints the kernels' JSON line and the card line, and as its last line
 {"ok": true, "device": {...}}. Without a card, or without the repo beside
 it, it exits non-zero and prints no result.
@@ -202,6 +228,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -2628,6 +2655,369 @@ def other_backbones(fc, mas):
     return out
 
 
+# phase 19: the packed data path and the run tools on phase 10's corpus shape
+PACKED_STEPS = 3  # per run of (c); checkpoints at steps 2 and 3, the two (e) averages
+# the host collator's run twice, first and last, so that the cache's runs are
+# compared with a run after the same warm-up
+PACKED_RUNS = {"packed": [], "cache": ["--device-cache"],
+               "cache_bf16_int16": ["--device-cache", "--cache-mel-dtype", "bfloat16",
+                                    "--cache-wav-dtype", "int16"], "packed_again": []}
+COLLATE_BATCHES = 2  # (b): the loader's first batches, held against BucketedCollate
+COLLATE_KEYS = ("x", "wav", "mel", "pitches", "energies", "x_lengths", "mel_lengths",
+                "wav_lengths")
+# (f): trials at test widths (tests/test_torch_trainer.py's CLI_OVERRIDES), on the card
+SWEEP_TRIALS, SWEEP_STEPS = 2, 2
+SWEEP_OVERRIDES = [
+    "data.batch_size=4", "data.text_bucket_size=16", "data.mel_bucket_size=64",
+    "data.max_text_len=16", "data.max_mel_len=64", "data.features.n_feats=20",
+    "data.features.n_fft=256", "data.features.hop_length=64", "data.features.win_length=256",
+    "generator.dim=32", "generator.segment_size=16",
+    "generator.encoder.intermediate_dim=64", "generator.encoder.num_layers=2",
+    "generator.decoder.intermediate_dim=64", "generator.decoder.num_layers=2",
+    "generator.vocoder.dim=48", "generator.vocoder.intermediate_dim=96",
+    "generator.vocoder.num_layers=2", "discriminator.periods=[2, 3]",
+    "discriminator.resolutions=[[256, 64, 256]]", "discriminator.mrd_channels=16",
+    "train_args.pretraining_steps=0", f"val_every_n_steps={SWEEP_STEPS}", "log_every_n_steps=1"]
+SWEEP_TRAIN_ARGS = ["--synthetic", "--max-steps", str(SWEEP_STEPS), "--profile-steps",
+                    f"0,{SWEEP_STEPS - 1}"]
+B3_KERNEL = "mas_wavefront_kernel"  # csrc/mas_wavefront.cu's __global__, as the trace names it
+PACKED_DEVICE = "cuda"  # phase 19's device; left implicit where it is an entry point's default
+
+
+def packed_config():
+    """Phase 10's trainer config with the en-g2p front end (so that
+    cli/infer.py reads its checkpoints), a log every step, one validation at
+    the last step and a checkpoint every other step."""
+    import dataclasses
+
+    cfg = training_config()
+    tp = dataclasses.replace(cfg.data.text_processor, tokenizer="en-g2p")
+    return dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, text_processor=tp),
+                               log_every_n_steps=1, val_every_n_steps=PACKED_STEPS,
+                               ckpt_every_n_steps=2)
+
+
+def write_datafiles(root, name, n, seed, cfg):
+    """Phase 10's synthetic utterances written as datafiles (a .json and a
+    .npz each) with a filelist; returns the filelist's path."""
+    from optispeech_tpu_torch.data.datamodule import SyntheticDataset
+
+    feats = cfg.generator.features
+    ds = SyntheticDataset(n_items=n, n_feats=feats.n_feats, hop_length=feats.hop_length,
+                          seed=seed, text_range=TEXT_RANGE, mel_range=MEL_RANGE)
+    (root / name).mkdir()
+    paths = []
+    for i, item in enumerate(ds.items):
+        base = root / name / f"utt{i:04d}"
+        base.with_suffix(".json").write_text(json.dumps(
+            {"phoneme_ids": item["x"].tolist(), "text": item["text"]}))
+        np.savez(base.with_suffix(".npz"), wav=item["wav"], mel=item["mel"],
+                 energy=item["energy"], pitch=item["pitch"])
+        paths.append(str(base))
+    filelist = root / f"{name}.txt"
+    filelist.write_text("\n".join(paths) + "\n")
+    return filelist
+
+
+def pack_and_collate(root, cfg):
+    """(b): cli/pack.py on both splits; the packed loader's first batches
+    against BucketedCollate on the same indices (exactly equal), and one
+    batch's host-collator and Python times. Returns the two .pak paths and
+    the numbers."""
+    from optispeech_tpu_torch.cli import pack
+    from optispeech_tpu_torch.data.datamodule import BucketedCollate, TextWavDataset
+    from optispeech_tpu_torch.data.packed import PackedDataset, PackedLoader
+
+    t0 = time.perf_counter()
+    lists = {"train": write_datafiles(root, "train", TRAIN_ITEMS, 0, cfg),
+             "val": write_datafiles(root, "val", VAL_ITEMS, 1, cfg)}
+    t1 = time.perf_counter()
+    paks = {}
+    for split, filelist in lists.items():
+        paks[split] = root / f"{split}.pak"
+        assert pack.main([str(filelist), str(paks[split]), *WORKFLOW_CONFIG]) == 0
+    t2 = time.perf_counter()
+    sizes = {split: p.stat().st_size for split, p in paks.items()}
+    print(f"  datafiles: {TRAIN_ITEMS} train / {VAL_ITEMS} val utterances in {t1 - t0:.1f} s; "
+          f"cli/pack.py: train.pak {sizes['train'] / 2 ** 20:.1f} MiB, val.pak "
+          f"{sizes['val'] / 2 ** 20:.1f} MiB in {t2 - t1:.1f} s", flush=True)
+
+    d, feats = cfg.data, cfg.generator.features
+    ds = PackedDataset(str(paks["train"]), d.statistics, f_min=feats.f_min)
+    assert (ds.n_feats, ds.hop_length) == (feats.n_feats, feats.hop_length)
+    loader = PackedLoader(ds, d.batch_size, d.text_bucket_size, d.mel_bucket_size, shuffle=True,
+                          seed=d.seed, max_text_len=d.max_text_len, max_mel_len=d.max_mel_len)
+    items = TextWavDataset(str(lists["train"]), f_min=feats.f_min)  # the filelist's order
+    collate = BucketedCollate(n_feats=feats.n_feats, statistics=d.statistics,
+                              hop_length=feats.hop_length, text_bucket=d.text_bucket_size,
+                              mel_bucket=d.mel_bucket_size, max_text_len=d.max_text_len,
+                              max_mel_len=d.max_mel_len)
+    order = loader._batch_indices()[:COLLATE_BATCHES]
+    for bat, got in zip(order, loader):
+        want = collate([items[int(i)] for i in bat])
+        bad = [k for k in COLLATE_KEYS if got[k].shape != want[k].shape
+               or not np.array_equal(got[k], want[k])]
+        assert not bad, f"the host collator differs from BucketedCollate in {bad}"
+    bat = order[0]
+    args = (d.text_bucket_size, d.mel_bucket_size, d.max_text_len, d.max_mel_len)
+    native = []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        ds.assemble(bat, *args)
+        native.append(1e3 * (time.perf_counter() - t0))
+    read, collated = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        batch = [items[int(i)] for i in bat]
+        t1 = time.perf_counter()
+        collate(batch)
+        t2 = time.perf_counter()
+        read.append(1e3 * (t1 - t0))
+        collated.append(1e3 * (t2 - t1))
+    out = {"pak_bytes": sizes, "native_ms": statistics.median(native),
+           "python_read_ms": statistics.median(read),
+           "python_collate_ms": statistics.median(collated)}
+    print(f"  the loader's first {COLLATE_BATCHES} batches of {d.batch_size} equal "
+          f"BucketedCollate's on the same indices, every array bit for bit", flush=True)
+    print(f"  one batch of {d.batch_size}: host collator (8 threads) {out['native_ms']:.2f} ms "
+          f"(median of 7); the Python path {out['python_read_ms'] + out['python_collate_ms']:.2f} "
+          f"ms (median of 3: datafile reads {out['python_read_ms']:.2f} + BucketedCollate "
+          f"{out['python_collate_ms']:.2f})", flush=True)
+    return paks, out
+
+
+def packed_runs(fc, mas, root, paks, cfg):
+    """(c): cli/train.py::run three ways from one seed; returns per run the
+    fit step ms, the launches, the cache's bytes and the step-1 logs, and
+    keeps the float32 cache run's directory and cache for (d) and (e)."""
+    from optispeech_tpu_torch.cli import train as cli
+
+    out = {}
+    n_val_batches = -(-VAL_ITEMS // cfg.data.batch_size)
+    for name, flags in PACKED_RUNS.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        args = cli.parse_args(["--device", PACKED_DEVICE, "--out-dir", str(root / name),
+                               "--max-steps", str(PACKED_STEPS), "--packed-train",
+                               str(paks["train"]), "--packed-val", str(paks["val"]),
+                               "--no-print-config", *flags])
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        train, val = cli.build_packed_loaders(
+            cfg, args.packed_train, args.packed_val, device_cache=args.device_cache,
+            device=PACKED_DEVICE, cache_mel_dtype=args.cache_mel_dtype,
+            cache_wav_dtype=args.cache_wav_dtype)
+        torch.cuda.synchronize()
+        loaders_s, mem1 = time.perf_counter() - t0, torch.cuda.memory_allocated()
+        for counted in (fc.convnext_block_fused, mas.viterbi_decode, mas.viterbi_decode_extract):
+            counted.launches = 0
+        t0 = time.perf_counter()
+        _, state = cli.run(cfg, args, train_loader=train, val_loader=val)
+        run_s = time.perf_counter() - t0
+        rows = [json.loads(x) for x in (root / name / "metrics.jsonl").read_text().splitlines()]
+        fit_ms = {r["step"]: 1e3 / r["perf/steps_per_sec"] for r in rows
+                  if "perf/steps_per_sec" in r}
+        val_rows = [r for r in rows if "total_loss/val_total" in r]
+        step1 = next(r for r in rows if r["step"] == 1 and "total_loss/generator" in r)
+        run = {"b3": mas.viterbi_decode.launches, "b4": mas.viterbi_decode_extract.launches,
+               "b1": fc.convnext_block_fused.launches, "fit_ms": fit_ms, "run_s": run_s,
+               "loaders_s": loaders_s, "cache_bytes_allocated": mem1 - mem0,
+               "arena_bytes": getattr(getattr(train, "cache", None), "arena_bytes", 0),
+               "step1": {k: v for k, v in step1.items() if not k.startswith("perf/")},
+               "val_total": val_rows[0]["total_loss/val_total"] if val_rows else None}
+        print(f"  ({name}) {' '.join(flags) or 'the host collator'}: loaders in "
+              f"{loaders_s:.2f} s, the cache's arenas {run['arena_bytes'] / 2 ** 20:.1f} MiB "
+              f"(memory_allocated {mem0 / 2 ** 20:.1f} -> {mem1 / 2 ** 20:.1f} MiB); run() "
+              f"{run_s:.1f} s; fit step ms (perf/steps_per_sec) "
+              + ", ".join(f"{k}: {v:.1f}" for k, v in fit_ms.items())
+              + f"; val_total {run['val_total']}; B3 {run['b3']}, B4 {run['b4']}, "
+              f"B1 {run['b1']}", flush=True)
+        bad = [(r["step"], k) for r in rows for k, v in r.items() if not np.isfinite(v)]
+        assert not bad, f"{name}: non-finite logged values at {bad}"
+        assert state.step == PACKED_STEPS and len(val_rows) == 1, f"{name}: steps or validation"
+        assert run["b3"] == PACKED_STEPS, f"{name}: B3 {run['b3']}, not one per step"
+        assert run["b4"] == n_val_batches, f"{name}: B4 {run['b4']}, not one per val batch"
+        assert run["b1"] == 0, f"{name}: B1 launched in training"
+        if name == "cache":
+            out["cache_obj"], out["cache_dir"] = train.cache, root / name
+        out[name] = run
+        del state, train, val
+    host, cached = out["packed"]["step1"], out["cache"]["step1"]
+    assert set(host) == set(cached)
+    gaps = {k: abs(cached[k] - host[k]) / max(abs(host[k]), 1e-12) for k in host if k != "step"}
+    worst = max(gaps, key=gaps.get)
+    print(f"  step 1, --device-cache against the host collator: largest relative log gap "
+          f"{gaps[worst]:.2e} ({worst}; rtol {STEP_LOG_RTOL})", flush=True)
+    assert gaps[worst] <= STEP_LOG_RTOL, f"{worst}: cached step 1 differs by {gaps[worst]}"
+    out["step1_gap"] = gaps[worst]
+    return out
+
+
+def scan_against_steps(mas, cfg, cache):
+    """(d): make_cached_scan_step with K = 2 against two
+    make_cached_train_step calls, each from a state made from one seed."""
+    import itertools
+
+    from optispeech_tpu_torch.data.device_cache import DeviceCacheLoader
+    from optispeech_tpu_torch.ops.segments import host_sample_segment_starts
+    from optispeech_tpu_torch.training.state import init_train_state
+    from optispeech_tpu_torch.training.step import make_cached_scan_step, make_cached_train_step
+
+    d = cfg.data
+    light = list(itertools.islice(DeviceCacheLoader(cache, d.batch_size, d.text_bucket_size,
+                                                    d.mel_bucket_size, shuffle=True, seed=3), 2))
+    t_text, t_mel = max(b["t_text"] for b in light), max(b["t_mel"] for b in light)
+    rng = np.random.default_rng(0)
+    seg = min(cfg.generator.segment_size, t_mel)
+    idx_start = torch.from_numpy(np.stack([
+        np.stack([b["idx"], host_sample_segment_starts(rng, b["mel_lengths"], seg)], axis=1)
+        for b in light]).astype(np.int32)).to(PACKED_DEVICE)
+    mas.viterbi_decode.launches = 0
+    seq = init_train_state(cfg, PACKED_DEVICE, seed=0)
+    one = make_cached_train_step(cfg, cache)
+    seq_logs = [one(seq, idx_start[k], t_text=t_text, t_mel=t_mel) for k in range(2)]
+    del seq
+    gc.collect()
+    torch.cuda.empty_cache()
+    scanned = init_train_state(cfg, PACKED_DEVICE, seed=0)
+    logs_k = make_cached_scan_step(cfg, cache)(scanned, idx_start, t_text=t_text, t_mel=t_mel)
+    launches = mas.viterbi_decode.launches
+    gaps = {(k, i): abs(float(logs_k[k][i]) - float(seq_logs[i][k]))
+            / max(abs(float(seq_logs[i][k])), 1e-12) for k in logs_k for i in range(2)}
+    worst = max(gaps, key=gaps.get)
+    print(f"  K = 2 batches of {d.batch_size} at ({t_text}, {t_mel}): the scan against two "
+          f"steps, largest relative log gap {gaps[worst]:.2e} ({worst}; rtol {STEP_LOG_RTOL}); "
+          f"B3 {launches}", flush=True)
+    assert scanned.step == 2 and all(v.shape == (2,) for v in logs_k.values())
+    assert gaps[worst] <= STEP_LOG_RTOL, f"scan {worst} differs by {gaps[worst]}"
+    assert launches == 4, f"B3 {launches} over the two steps and the scan of two, not 4"
+    del scanned
+    return {"gap": gaps[worst], "b3": launches}
+
+
+def average_run(fc, mas, root, run_dir, paks, cfg):
+    """(e): cli/average.py --last 2 --packed-val --compare (on the card by
+    default), then cli/infer.py --fused on the averaged checkpoint."""
+    from optispeech_tpu_torch.cli import average
+
+    device = [] if PACKED_DEVICE == "cuda" else ["--device", PACKED_DEVICE]
+    for counted in (fc.convnext_block_fused, mas.viterbi_decode, mas.viterbi_decode_extract):
+        counted.launches = 0
+    t0 = time.perf_counter()
+    assert average.main([str(run_dir), "--last", "2", "--packed-val", str(paks["val"]),
+                         "--compare", *device]) == 0
+    avg_s = time.perf_counter() - t0
+    b4, b3 = mas.viterbi_decode_extract.launches, mas.viterbi_decode.launches
+    compare = json.loads((run_dir / "avg_eval" / "compare.json").read_text())
+    n_val_batches = -(-VAL_ITEMS // cfg.data.batch_size)
+    print(f"  cli/average.py --last 2 --packed-val --compare: steps {compare['averaged_steps']} "
+          f"in {avg_s:.1f} s; val_total newest {compare['last']['total_loss/val_total']:.4f}, "
+          f"averaged {compare['averaged']['total_loss/val_total']:.4f}; B4 {b4}, B3 {b3}",
+          flush=True)
+    assert compare["averaged_steps"] == [2, PACKED_STEPS], compare["averaged_steps"]
+    assert all(np.isfinite(compare[k]["total_loss/val_total"]) for k in ("last", "averaged"))
+    assert b4 == 2 * n_val_batches, f"B4 {b4}, not one per val batch in each of two passes"
+    assert b3 == 0, f"B3 launched {b3} times in validation"
+    fc.convnext_block_fused.launches = 0
+    out, wavs = workflow_infer(run_dir / "avg_ckpt", root / "avg_wavs", *device)
+    b1 = fc.convnext_block_fused.launches
+    check_wavs(out, wavs, cfg.generator.features.hop_length, "the averaged checkpoint")
+    print(f"  cli/infer.py --fused on the averaged checkpoint: {len(wavs)} wavs, "
+          f"{int(out.durations.sum())} frames, latency {out.latency:.2f} ms; B1 {b1}", flush=True)
+    assert b1 == 12, f"B1 {b1} per synthesise of the averaged checkpoint, not 12"
+    return {"b4": b4, "b1": b1, "seconds": avg_s,
+            "val_total": {k: compare[k]["total_loss/val_total"] for k in ("last", "averaged")}}
+
+
+def b3_in_trace(trace_path) -> int:
+    events = json.loads(Path(trace_path).read_text()).get("traceEvents", [])
+    return sum(1 for e in events if str(e.get("cat", "")).lower() == "kernel"
+               and B3_KERNEL in str(e.get("name", "")))
+
+
+def sweep_run(root):
+    """(f): cli/sweep.py with 2 trials of 2 steps at test widths, each a
+    cli.train subprocess on the card (build/ populated) that traces its two
+    steps; returns each trial's wall seconds, objective and B3 count."""
+    from optispeech_tpu_torch.cli import sweep
+
+    spec = {"base_config": "default", "trials": SWEEP_TRIALS, "seed": 0,
+            "objective": "total_loss/val_total", "direction": "min",
+            "train_args": SWEEP_TRAIN_ARGS, "overrides": SWEEP_OVERRIDES,
+            "space": {"optimizer.lr": {"log_uniform": [1e-5, 1e-3]}}}
+    (root / "spec.yaml").write_text(json.dumps(spec))  # JSON is YAML
+    seconds = []
+    run_trial = sweep.run_trial
+
+    def timed(*a, **kw):  # each trial's wall seconds
+        t0 = time.perf_counter()
+        try:
+            return run_trial(*a, **kw)
+        finally:
+            seconds.append(time.perf_counter() - t0)
+
+    sweep.run_trial = timed
+    try:
+        best = sweep.main([str(root / "spec.yaml"), "--out-dir", str(root / "sweep")])
+    finally:
+        sweep.run_trial = run_trial
+    rows = [json.loads(x)
+            for x in (root / "sweep" / "sweep_results.jsonl").read_text().splitlines()]
+    b3 = [b3_in_trace(Path(r["out_dir"]) / "profile" / "trace.json") for r in rows]
+    for r, s, n in zip(rows, seconds, b3):
+        print(f"  trial {r['trial']}: lr {r['params']['optimizer.lr']:.3e}, return code "
+              f"{r['returncode']}, objective {r['objective']}, wall {s:.1f} s (a fresh process), "
+              f"B3 kernels in its trace of {SWEEP_STEPS} steps: {n}", flush=True)
+    print(f"  best trial {best['trial']} (objective {best['objective']})", flush=True)
+    assert len(rows) == SWEEP_TRIALS and all(r["returncode"] == 0 for r in rows), rows
+    assert all(r["objective"] is not None and np.isfinite(r["objective"]) for r in rows), rows
+    assert all(n == SWEEP_STEPS for n in b3), f"B3 in the trials' traces: {b3}"
+    return {"trial_s": seconds, "b3": b3, "best": best["trial"],
+            "objectives": [r["objective"] for r in rows]}
+
+
+def packed_path(fc, mas, host_build):
+    """Phase 19 in a temporary directory outside the checkout, deleted after."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_packed_"))
+    try:
+        print(f"  (a) the host collator: {host_build['path']} built in "
+              f"{host_build['seconds']:.1f} s in phase 2, beside the kernels", flush=True)
+        cfg = packed_config()
+        print("  (b) pack and collate", flush=True)
+        paks, collate = pack_and_collate(root, cfg)
+        print(f"  (c) cli/train.py::run three ways (the first again last), {PACKED_STEPS} "
+              f"steps each, batch "
+              f"{cfg.data.batch_size}, one validation", flush=True)
+        runs = packed_runs(fc, mas, root, paks, cfg)
+        print("  (d) the scan of K = 2 against two cached steps", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        scan = scan_against_steps(mas, cfg, runs.pop("cache_obj"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        print("  (e) average", flush=True)
+        avg = average_run(fc, mas, root, runs.pop("cache_dir"), paks, cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print("  (f) sweep", flush=True)
+        sweep = sweep_run(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"host_build_s": host_build["seconds"], "collate": collate,
+           "runs": {k: {m: v[m] for m in ("b3", "b4", "b1", "fit_ms", "run_s", "loaders_s",
+                                          "cache_bytes_allocated", "arena_bytes", "val_total")}
+                    for k, v in runs.items() if k in PACKED_RUNS},
+           "step1_gap": runs["step1_gap"], "scan": scan, "average": avg, "sweep": sweep,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"  phase 19 took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2653,7 +3043,13 @@ def main() -> int:
     phase("2. build")
     t_build = time.perf_counter()
     probe = Path(__file__).resolve().parent / "scripts" / "mas_chain.cu"
-    built = _build.build_kernels(sources={"mas_chain": probe})
+    # the packed data path's host collator builds beside the kernels
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        host_job = pool.submit(_build.build_host, "packed_dataset")
+        built = _build.build_kernels(sources={"mas_chain": probe})
+        host_build = host_job.result()
+    print(f"  packed_dataset (host C++, csrc/packed_dataset.cpp): {host_build['path']} built in "
+          f"{host_build['seconds']:.1f} s")
     fused = {"convnext_block": ("B1", fc.PADDED_CHANNELS, fc.kernel_layout),
              "convnext_block_int8": ("B2", fc.INT8_CHANNELS, fc.kernel_layout_int8)}
     for name, info in built.items():
@@ -2748,6 +3144,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     others = other_backbones(fc, mas)
 
+    phase("19. the packed data path and the run tools (cli/pack.py, --packed-train, "
+          "--device-cache, the scan, cli/average.py, cli/infer.py, cli/sweep.py)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    packed = packed_path(fc, mas, host_build)
+
     trunk = rows["trunk"]
     kernel = {
         "name": "convnext_block_fused", "route": "cuda",
@@ -2770,6 +3172,7 @@ def main() -> int:
         "launches_other_backbones": {
             **{name: others[name]["b1_launches_per_decode"] for name in OTHER_BACKBONES},
             "unit": "per fused decode", "light_cli_infer": others["cli_b1_launches"]},
+        "launches_averaged_checkpoint_cli_infer": packed["average"]["b1"],
         "max_abs_err": max_abs_err["narrow"],
         "ms": trunk["ms"], "plain_ms": trunk["plain_ms"], "bound_ms": trunk["bound_ms"],
         "bound_by": trunk["bound_by"], "library_ms": trunk["library_ms"],
@@ -2802,6 +3205,10 @@ def main() -> int:
         "launch_path": "phase 10, the trainer (5 steps)", "launches_phase_7": mas_launches,
         "launches_bf16_steps": bf16["b3_launches"],
         "launches_other_backbones": {name: others[name]["b3_launches"] for name in OTHER_BACKBONES},
+        "launches_packed_path": {
+            **{name: run["b3"] for name, run in packed["runs"].items()},
+            "unit": f"per run of {PACKED_STEPS} steps", "scan_and_two_steps": packed["scan"]["b3"],
+            "sweep_trials_traced": packed["sweep"]["b3"]},
         "max_abs_err": mas_err["durations"],
         "ms": mas_row["ms"], "plain_ms": mas_row["plain_ms"], "bound_ms": mas_row["bound_ms"],
         "bound_by": mas_row["bound_by"], "library_ms": None, "shape": mas_row["shape"],
@@ -2817,6 +3224,9 @@ def main() -> int:
         "launch_path": "phase 10, the trainer (1 validation of 1 batch)",
         "launches_bf16_val": bf16["b4_launches"],
         "launches_other_backbones": {name: others[name]["b4_launches"] for name in OTHER_BACKBONES},
+        "launches_packed_path": {
+            **{name: run["b4"] for name, run in packed["runs"].items()},
+            "unit": "per validation of one batch", "average_two_passes": packed["average"]["b4"]},
         "max_abs_err": ext_err["durations"],
         "ms": ext_row["ms"], "plain_ms": ext_row["plain_ms"], "bound_ms": ext_row["bound_ms"],
         "bound_by": ext_row["bound_by"], "library_ms": None, "shape": ext_row["shape"],
@@ -2845,6 +3255,7 @@ def main() -> int:
     print("\n  serving: " + json.dumps(serving))
     print("\n  export: " + json.dumps(export))
     print("\n  other backbones: " + json.dumps(others))
+    print("\n  packed path: " + json.dumps(packed))
     print(f"\n  build {build_s:.1f} s; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [kernel, wide_kernel, mas_kernel, extract_kernel, int8_kernel]}))
     print(card)

@@ -3,11 +3,16 @@
 Usage:
     python -m optispeech_tpu_torch.cli.train --config default --out-dir runs/lj \
         [data.batch_size=64 ...] [--synthetic] [--device cpu] [--fast-dev-run] [--overfit N]
+    python -m optispeech_tpu_torch.cli.train --packed-train train.pak --packed-val val.pak \
+        [--device-cache [--cache-mel-dtype bfloat16] [--cache-wav-dtype int16]] ...
 
 `main` parses the flags and loads the YAML config; `run(cfg, args)` builds
 the loaders and the `Trainer`, fits, and exports the inference checkpoint to
 `<out-dir>/inference_ckpt`, so a caller holding a config built in code needs
-no YAML. `--device` defaults to the card. The debug harnesses are JAX's:
+no YAML. `--packed-train`/`--packed-val` read arena files of `cli/pack.py`
+through the host collator (`data/packed.py`); `--device-cache` uploads the
+packed train split to the device once and gathers each batch there
+(`data/device_cache.py`); validation stays on the host loader. `--device` defaults to the card. The debug harnesses are JAX's:
 --fast-dev-run, --overfit N, --limit FRAC, --debug-nans (autograd anomaly
 detection).
 """
@@ -22,16 +27,42 @@ from ..utils.pylogger import get_pylogger
 log = get_pylogger("optispeech_tpu_torch.train")
 
 # flags of the JAX CLI whose paths the port does not have yet
-_PACKED = ("--packed-train/--packed-val (the native packed loader) is not ported yet "
-           "(ROADMAP.md, queue A item 9)")
 NOT_PORTED = {
-    "packed_train": _PACKED,
-    "packed_val": _PACKED,
-    "device_cache": "--device-cache (device-resident features) is not ported yet "
-                    "(ROADMAP.md, queue A item 8)",
     "distributed": "--distributed (training over several processes) is not ported yet "
                    "(ROADMAP.md, queue A item 7)",
 }
+
+
+def build_packed_loaders(cfg, packed_train: str, packed_val: str = None,
+                         device_cache: bool = False, device=None,
+                         cache_mel_dtype: str = "float32", cache_wav_dtype: str = "float32"):
+    """(train loader, val loader or None) over packed arena files: the host
+    collator's `PackedLoader`s, or with `device_cache` a `DeviceCacheLoader`
+    over the train split uploaded to `device` (validation keeps the host
+    loader: it needs the whole ground-truth waveforms)."""
+    from ..data.packed import PackedDataset, PackedLoader
+
+    d, f_min = cfg.data, cfg.generator.features.f_min
+    caps = dict(max_text_len=d.max_text_len, max_mel_len=d.max_mel_len)
+
+    def host(path, shuffle):
+        # val keeps partial batches: a val split smaller than the batch
+        # size must still give val metrics
+        return PackedLoader(PackedDataset(path, d.statistics, f_min=f_min), d.batch_size,
+                            d.text_bucket_size, d.mel_bucket_size, shuffle=shuffle,
+                            seed=d.seed, drop_last=shuffle, **caps)
+
+    val = host(packed_val, False) if packed_val else None
+    if not device_cache:
+        return host(packed_train, True), val
+    from ..data.device_cache import DeviceCacheLoader, DeviceFeatureCache
+
+    cache = DeviceFeatureCache(packed_train, d.statistics, f_min=f_min, device=device,
+                               text_bucket=d.text_bucket_size, mel_bucket=d.mel_bucket_size,
+                               mel_dtype=cache_mel_dtype, wav_dtype=cache_wav_dtype, **caps)
+    train = DeviceCacheLoader(cache, d.batch_size, d.text_bucket_size, d.mel_bucket_size,
+                              shuffle=True, seed=d.seed, **caps)
+    return train, val
 
 
 def build_loaders(cfg, synthetic: bool, overfit: int = 0, limit: float = 1.0):
@@ -74,9 +105,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="torch device to train on (default: the CUDA card; `cpu` when asked)")
     p.add_argument("--max-steps", type=int, default=None)
     p.add_argument("--synthetic", action="store_true", help="use synthetic data (smoke)")
-    p.add_argument("--packed-train", default=None, help="not ported yet")
-    p.add_argument("--packed-val", default=None, help="not ported yet")
-    p.add_argument("--device-cache", action="store_true", help="not ported yet")
+    p.add_argument("--packed-train", default=None,
+                   help="packed .pak train file (cli/pack.py; the host collator)")
+    p.add_argument("--packed-val", default=None, help="packed .pak val file")
+    p.add_argument("--device-cache", action="store_true",
+                   help="upload the packed train features to the device once; each step "
+                        "ships only integer indices (requires --packed-train)")
+    p.add_argument("--cache-mel-dtype", default="float32", choices=["float32", "bfloat16"],
+                   help="device-cache mel arena dtype (bfloat16 halves its bytes)")
+    p.add_argument("--cache-wav-dtype", default="float32", choices=["float32", "int16"],
+                   help="device-cache wav arena dtype (int16 halves the largest arena)")
     p.add_argument("--fast-dev-run", action="store_true")
     p.add_argument("--overfit", type=int, default=0, help="overfit N batches")
     p.add_argument("--limit", type=float, default=1.0, help="fraction of train data")
@@ -89,7 +127,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--no-print-config", action="store_true",
                    help="skip the effective config at startup")
     p.add_argument("overrides", nargs="*", help="dotted config overrides key=value")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.device_cache and not args.packed_train:
+        p.error("--device-cache requires --packed-train")
+    return args
 
 
 def _check_ported(args: argparse.Namespace):
@@ -99,9 +140,10 @@ def _check_ported(args: argparse.Namespace):
 
 
 def run(cfg, args: argparse.Namespace, train_loader=None, val_loader=None):
-    """Train `cfg` as `args` ask: the loaders of `build_loaders` unless
-    given, `Trainer.init_or_restore_state`, `fit`, then the inference
-    checkpoint. Returns (trainer, final state)."""
+    """Train `cfg` as `args` ask: the given loaders, else those of
+    `build_packed_loaders` (with --packed-train) or `build_loaders`, then
+    `Trainer.init_or_restore_state`, `fit` and the inference checkpoint.
+    Returns (trainer, final state)."""
     from ..config import to_dict
     from ..training.trainer import Trainer
 
@@ -110,7 +152,12 @@ def run(cfg, args: argparse.Namespace, train_loader=None, val_loader=None):
     if not args.no_print_config:
         log.info("Effective config:\n" + json.dumps(to_dict(cfg), indent=2))
     trainer = Trainer(cfg, out_dir=out_dir, device=args.device, debug_nans=args.debug_nans)
-    if train_loader is None:
+    if train_loader is None and args.packed_train:
+        train_loader, val_loader = build_packed_loaders(
+            cfg, args.packed_train, args.packed_val, device_cache=args.device_cache,
+            device=trainer.device, cache_mel_dtype=args.cache_mel_dtype,
+            cache_wav_dtype=args.cache_wav_dtype)
+    elif train_loader is None:
         train_loader, val_loader = build_loaders(cfg, args.synthetic, args.overfit, args.limit)
     log.info(f"Training `{cfg.run_name}` -> {out_dir} on {trainer.device}")
     state = trainer.init_or_restore_state(forced_resume_from=args.forced_resume)

@@ -3,7 +3,9 @@
 Every `csrc/<name>.cu` is compiled by nvcc into its own shared library with
 a plain C interface, `build/lib<name>-<hash>.so` beside the package, at
 first use. The hash covers the source, the shared headers (`csrc/*.cuh`)
-and the flags, so an edit rebuilds.
+and the flags, so an edit rebuilds. The host C++ sources (`csrc/*.cpp`,
+the packed data path's collator) are built the same way by the host
+compiler (`CXX`, else g++): `build_host(name)` and `load_host(name)`.
 `build_kernels()` starts one nvcc per missing library, all at once, and
 waits for all of them; `load(name)` builds one if needed and opens it with
 ctypes, one thread at a time for a first load (two threads of one process
@@ -25,6 +27,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# no -march=native: one build serves any x86-64 host that shares build/
+CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread"]
 
 
 def kernel_names() -> list[str]:
@@ -49,6 +53,41 @@ def library_path(name: str, source: Path | None = None) -> Path:
     parts += [header.read_bytes() for header in sorted(CSRC.glob("*.cuh"))]
     digest = hashlib.sha1(b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _cxx() -> str:
+    return os.environ.get("CXX") or "g++"
+
+
+def host_library_path(name: str) -> Path:
+    """build/lib<name>-<hash>.so of csrc/<name>.cpp, hashed over the source,
+    the compiler's name and the flags."""
+    flags = " ".join([_cxx(), *CXX_FLAGS]).encode()
+    digest = hashlib.sha1((CSRC / f"{name}.cpp").read_bytes() + flags).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_host(name: str) -> dict:
+    """Compile csrc/<name>.cpp with the host compiler unless a build of the
+    same source exists. Returns {"path", "seconds", "log"}; raises with the
+    compiler's output when it fails (there is no other path to fall back on)."""
+    path = host_library_path(name)
+    if path.exists():
+        return {"path": str(path), "seconds": 0.0, "log": ""}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([_cxx(), *CXX_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cpp")],
+                              capture_output=True, text=True)
+    except OSError as e:
+        raise RuntimeError(f"{name}: the host compiler {_cxx()!r} could not run: {e}") from e
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{name}: {_cxx()} failed ({proc.returncode}):\n{log}")
+    os.replace(tmp, path)  # atomic: a concurrent build never loads half a file
+    return {"path": str(path), "seconds": time.perf_counter() - t0, "log": log}
 
 
 def build_kernels(names=None, sources=None) -> dict:
@@ -106,4 +145,17 @@ def load(name: str) -> ctypes.CDLL:
             lib = _LIBRARIES.get(name)
             if lib is None:
                 lib = _LIBRARIES[name] = ctypes.CDLL(build_kernels([name])[name]["path"])
+    return lib
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The host library csrc/<name>.cpp, built first if needed, under the
+    same lock as `load`."""
+    key = f"host:{name}"
+    lib = _LIBRARIES.get(key)
+    if lib is None:
+        with _LOAD_LOCK:
+            lib = _LIBRARIES.get(key)
+            if lib is None:
+                lib = _LIBRARIES[key] = ctypes.CDLL(build_host(name)["path"])
     return lib

@@ -12,7 +12,9 @@ newest `keep` steps are kept.
 updates the parameters in place) and writes the files on a thread; `wait()`
 returns once the checkpoint is durable. A step's directory is written
 under a temporary name and renamed, so a save cut short leaves no step
-behind.
+behind. A write that fails is logged at once, its step's loader state is
+deleted (no resume can then pair it with an older step), and the error is
+raised again at the next join.
 
 An inference checkpoint directory holds `config.json` (config and speaker
 list) and `generator.pt`, G's state dict; `OptiSpeech.load_from_checkpoint`
@@ -27,6 +29,9 @@ import threading
 import torch
 
 from ..config import ExperimentConfig, from_dict, to_dict
+from ..utils.pylogger import get_pylogger
+
+log = get_pylogger(__name__)
 
 STATE_FILE = "state.pt"
 GENERATOR_FILE = "generator.pt"
@@ -121,7 +126,12 @@ class TrainCheckpointManager:
                 shutil.rmtree(final, ignore_errors=True)
                 os.replace(tmp, final)
                 self._prune(keep_step=step)
-            except BaseException as e:  # surfaced at the next join
+            except BaseException as e:  # raised again at the next join
+                log.error(f"checkpoint save of step {step} failed: {e!r}")
+                try:
+                    os.remove(self._loader_state_path(step))
+                except OSError:
+                    pass
                 self._worker_error = e
 
         self._worker = threading.Thread(target=_work, name=f"ckpt-save-{step}", daemon=True)

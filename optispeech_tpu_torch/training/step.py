@@ -1,5 +1,6 @@
 """The GAN training and validation steps (port of
-`optispeech_tpu/training/step.py::make_train_step` and `make_val_step`).
+`optispeech_tpu/training/step.py::make_train_step`, `make_cached_train_step`,
+`make_cached_scan_step` and `make_val_step`).
 
 One call runs, in order:
 - the generator update on loss = AM loss + adversarial loss, where the
@@ -15,6 +16,11 @@ One call runs, in order:
 The batch is a dict of tensors on the state's device, in either form of the
 JAX step: `wav_seg` + `start_idx` (segment starts sampled on the host) or the
 full `wav` (starts drawn from the state's RNG). The log keys are JAX's.
+
+The cached steps take their batch from a device-resident feature cache
+(`data/device_cache.py`): one (B, 2) int32 tensor of item indices and
+segment starts is gathered into a batch on the device, then the same train
+step runs on it.
 
 The validation step runs G's forward with the duration extraction kernel
 (no gradient) and D's mel + MR-STFT losses, under `torch.no_grad()` with
@@ -115,6 +121,44 @@ def make_train_step(cfg: ExperimentConfig):
         return {k: v.detach() for k, v in logs.items()}
 
     return train_step
+
+
+def make_cached_train_step(cfg: ExperimentConfig, cache, donate: bool = False):
+    """Returns `step(state, idx_start, *, t_text, t_mel) -> logs`: the batch
+    of `idx_start` ((B, 2) int32 on the cache's device: item indices, then
+    segment starts in frames) gathered from `cache` (a
+    `DeviceFeatureCache`) at the bucketed lengths (t_text, t_mel), then
+    `make_train_step`'s step on it, which updates `state` in place.
+    `donate` (JAX's buffer donation) has no meaning here: it is accepted
+    and ignored."""
+    from ..data.device_cache import gather_arenas
+
+    del donate
+    base = make_train_step(cfg)
+    segment_size = cfg.generator.segment_size
+    hop = cfg.generator.features.hop_length
+
+    def step(state: TrainState, idx_start: torch.Tensor, *, t_text: int, t_mel: int) -> dict:
+        batch = gather_arenas(cache.arenas(), idx_start[:, 0], idx_start[:, 1], t_text, t_mel,
+                              segment_size, hop, cache.wav_scale)
+        return base(state, batch)
+
+    return step
+
+
+def make_cached_scan_step(cfg: ExperimentConfig, cache, donate: bool = False):
+    """Returns `steps(state, idx_start_k, *, t_text, t_mel) -> logs`: K cached
+    train steps over a (K, B, 2) index tensor, one after another (JAX's
+    `lax.scan`), every step at the same (t_text, t_mel); each log comes back
+    stacked to shape (K,). Equal to K calls of `make_cached_train_step`'s
+    step. `donate` is accepted and ignored."""
+    one = make_cached_train_step(cfg, cache)
+
+    def steps(state: TrainState, idx_start_k: torch.Tensor, *, t_text: int, t_mel: int) -> dict:
+        logs = [one(state, idx_start, t_text=t_text, t_mel=t_mel) for idx_start in idx_start_k]
+        return {k: torch.stack([log[k] for log in logs]) for k in logs[0]}
+
+    return steps
 
 
 def make_val_step(cfg: ExperimentConfig):

@@ -9,10 +9,15 @@ ends, however it ends. A SIGTERM is honoured at the next step boundary.
 Everything runs in one process on one device: the card unless the caller
 asks for the CPU.
 
+A train loader with a `cache` (`data/device_cache.py::DeviceCacheLoader`)
+yields light batches of item indices: `fit` then samples the segment starts
+on the host from the same seeded stream as the host path and ships one
+(B, 2) int32 tensor per step to the device, where the batch is gathered
+(`_cached_train_step`).
+
 Left out of the JAX trainer, each queued in ROADMAP.md: the workarounds for
 a slow host-to-TPU link (the async-dispatch throttle, the host-RSS guard and
-its re-exec, `malloc_trim`), the device-resident feature cache
-(`_cached_train_step`) and runs over several processes.
+its re-exec, `malloc_trim`) and runs over several processes.
 """
 
 import json
@@ -36,7 +41,7 @@ from .checkpoint import (
     save_inference_checkpoint,
 )
 from .state import TrainState, init_train_state
-from .step import make_train_step, make_val_step
+from .step import make_cached_train_step, make_train_step, make_val_step
 
 log = get_pylogger(__name__)
 
@@ -167,8 +172,9 @@ class Trainer:
         """Train until `max_steps` (default: the config's). `profile_steps=
         (start, stop)` traces those steps with torch.profiler into
         out_dir/profile/trace.json, where the spans `trainer/segment` (host
-        segment slicing) and `trainer/to_device` (the copy to the device)
-        mark the loop's host work."""
+        segment sampling and slicing) and `trainer/to_device` (the copy to
+        the device) mark the loop's host work. A loader with a `cache` runs
+        the cached step (`_cached_train_step`), whose spans are the same."""
         cfg = self.cfg
         max_steps = 1 if fast_dev_run else (max_steps or cfg.max_steps)
         state = state if state is not None else self.init_or_restore_state()
@@ -181,6 +187,12 @@ class Trainer:
                 log.info(f"Restored data-iterator state: {loader_state}")
         t_last, steps_since, empty_passes = time.perf_counter(), 0, 0
         profiler, saved_step = None, None
+        cache = getattr(train_loader, "cache", None)
+        if cache is not None:
+            if cache.device.type != self.device.type:
+                raise ValueError(f"the feature cache lies on {cache.device}, the trainer "
+                                 f"trains on {self.device}")
+            self._cached_step = make_cached_train_step(cfg, cache)
 
         # SIGTERM sets a flag that is read at the step boundary, so the
         # final save never sees a step half applied
@@ -198,11 +210,14 @@ class Trainer:
                     saw_batch = True
                     if profile_steps and step == profile_steps[0]:
                         profiler = self._start_profile()
-                    with record_function("trainer/segment"):
-                        host_batch = self._segment_batch(self._device_batch(batch), step)
-                    with record_function("trainer/to_device"):
-                        device_batch = self._to_device(host_batch)
-                    logs = self.train_step(state, device_batch)
+                    if "idx" in batch:
+                        logs = self._cached_train_step(state, batch, step)
+                    else:
+                        with record_function("trainer/segment"):
+                            host_batch = self._segment_batch(self._device_batch(batch), step)
+                        with record_function("trainer/to_device"):
+                            device_batch = self._to_device(host_batch)
+                        logs = self.train_step(state, device_batch)
                     if profiler is not None and step == profile_steps[1]:
                         profiler = self._stop_profile(profiler)
                     step += 1
@@ -418,23 +433,41 @@ class Trainer:
     def _to_device(self, batch: dict) -> dict:
         return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items() if v is not None}
 
+    def _segment_starts(self, mel_lengths, t_mel: int, step: int):
+        """The GAN segment starts of a batch padded to `t_mel` frames, drawn on
+        the host from a stream seeded by (config seed, step) as JAX seeds
+        process 0, so a resumed run draws the same starts. Returns (segment
+        frames, (B,) int32 starts)."""
+        from ..ops.segments import host_sample_segment_starts
+
+        seg = min(self.cfg.generator.segment_size, t_mel)
+        rng = np.random.default_rng((self.cfg.seed * 1_000_003 + step) & 0x7FFFFFFF)
+        return seg, host_sample_segment_starts(rng, mel_lengths, seg)
+
+    def _cached_train_step(self, state: TrainState, light: dict, step: int) -> dict:
+        """One step over a DeviceCacheLoader's light batch: the segment starts
+        of `_segment_batch`'s stream, shipped with the item indices as one
+        (B, 2) int32 tensor; the batch is gathered on the device."""
+        with record_function("trainer/segment"):
+            _, start = self._segment_starts(light["mel_lengths"], light["t_mel"], step)
+            idx_start = np.stack([light["idx"], start], axis=1).astype(np.int32)
+        with record_function("trainer/to_device"):
+            idx_start = torch.from_numpy(idx_start).to(self.device)
+        return self._cached_step(state, idx_start, t_text=light["t_text"], t_mel=light["t_mel"])
+
     def _segment_batch(self, batch: dict, step: int) -> dict:
-        """Sample the GAN segment starts on the host and keep only the
-        matching ground-truth crop (`wav_seg`) of the waveform, seeded by
-        (config seed, step) as JAX seeds process 0, so a resumed run draws
-        the same starts."""
+        """Sample the GAN segment starts on the host (`_segment_starts`) and
+        keep only the matching ground-truth crop (`wav_seg`) of the waveform."""
         wav = batch.get("wav")
         if wav is None:
             return batch
-        from ..ops.segments import host_sample_segment_starts, host_slice_wav_segments
+        from ..ops.segments import host_slice_wav_segments
 
-        seg = min(self.cfg.generator.segment_size, batch["mel"].shape[-1])
-        hop = self.cfg.generator.features.hop_length
-        rng = np.random.default_rng((self.cfg.seed * 1_000_003 + step) & 0x7FFFFFFF)
-        start = host_sample_segment_starts(rng, batch["mel_lengths"], seg)
+        seg, start = self._segment_starts(batch["mel_lengths"], batch["mel"].shape[-1], step)
         out = {k: v for k, v in batch.items() if k not in ("wav", "wav_lengths")}
         out["start_idx"] = start
-        out["wav_seg"] = host_slice_wav_segments(wav, start, seg, hop)
+        out["wav_seg"] = host_slice_wav_segments(wav, start, seg,
+                                                 self.cfg.generator.features.hop_length)
         if self.cfg.train_args.wire_mel_dtype == "bfloat16":
             # half the bytes of the largest transfer; the steps read mel as f32
             out["mel"] = torch.as_tensor(out["mel"]).to(torch.bfloat16)

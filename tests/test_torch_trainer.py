@@ -350,10 +350,18 @@ def test_cli_debug_harnesses(tmp_path):
     assert [r["step"] for r in rows] == [0, 1]
 
 
-@pytest.mark.parametrize("flag", [["--packed-train", "x.pak"], ["--device-cache"],
-                                  ["--distributed"]])
-def test_cli_flags_not_ported_raise(flag):
-    from optispeech_tpu_torch.cli.train import main
+@pytest.mark.parametrize("flag,error,match", [
+    (["--packed-train", "x.pak"], OSError, "x.pak"),
+    (["--device-cache"], SystemExit, "2"),
+    (["--distributed"], NotImplementedError, "ROADMAP.md, queue A item 7")])
+def test_cli_flags_not_ported_raise(flag, error, match, capsys):
+    """Only --distributed is still not ported; --packed-train on a file that
+    is not there raises (no fallback to another loader), and --device-cache
+    without --packed-train is a usage error, as in JAX."""
+    from optispeech_tpu_torch.cli.train import NOT_PORTED, main
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        main(["--synthetic", "--device", "cpu", *flag])
+    assert set(NOT_PORTED) == {"distributed"}
+    with pytest.raises(error, match=match):
+        main(["--synthetic", "--device", "cpu", "--no-print-config", *flag])
+    if error is SystemExit:
+        assert "--device-cache requires --packed-train" in capsys.readouterr().err
