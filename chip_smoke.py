@@ -188,7 +188,7 @@ Phases, each of which fails the run on any error:
      `OptiSpeech.save_checkpoint` and `cli/infer.py --fused` on the card:
      B1 8 times, a finite wav per sentence of frames x hop samples;
  19. the packed data path and the run tools, in a temporary directory
-     outside the checkout that is deleted after: (a) the host collator
+     outside the checkout that is deleted after phase 20: (a) the host collator
      (csrc/packed_dataset.cpp, built by the host compiler in phase 2 beside
      the kernels); (b) phase 10's corpus shape (256 train / 128 val
      synthetic utterances) written as datafiles, `cli/pack.py` on both
@@ -211,7 +211,24 @@ Phases, each of which fails the run on any error:
      samples); (f) `cli/sweep.py` with 2 trials of 2 steps at test widths on
      the card, each a fresh `cli.train` process that traces its steps with
      torch.profiler (B3 counted by name in the trace), each trial's wall
-     seconds.
+     seconds;
+ 20. parallelism (one process per device; the machine has one card, and
+     NCCL puts no two ranks of a communicator on one card): (a) `python -m
+     torch.distributed.run --standalone --nproc_per_node 1 -m
+     optispeech_tpu_torch.cli.train --distributed` on phase 19's config
+     and .pak files, 3 steps of batch 128 with a validation and one
+     checkpoint (its rank-0 files; the backend must be NCCL), step 1's logs
+     within STEP_LOG_RTOL of phase 19's run without a group, the fit step
+     beside that run's; a second launch resumes to step 4 and traces it
+     with its validation (`--profile-steps 3,4`): B3 once, B4 once per val
+     batch, counted by kernel name; (b) one process's step over phase 7's
+     128 rows without dropout, then two processes on the one card joined
+     over gloo (`init_distributed(backend="gloo")`, CUDA tensors staged
+     through the host), 64 rows each: each rank's logs (grad_norm/*
+     included) within STEP_LOG_RTOL of the one process's, both ranks'
+     parameters after the step equal bit for bit, B3 once per rank, the
+     peak memory per rank, and the reducer's ms and MiB per turn (gloo, not
+     NCCL).
 The kernels build in parallel (one nvcc per source, five sources and the
 probe), and the host collator beside them.
 Prints the kernels' JSON line and the card line, and as its last line
@@ -223,10 +240,14 @@ import base64
 import gc
 import io
 import json
+import os
 import re
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -2930,10 +2951,11 @@ def average_run(fc, mas, root, run_dir, paks, cfg):
             "val_total": {k: compare[k]["total_loss/val_total"] for k in ("last", "averaged")}}
 
 
-def b3_in_trace(trace_path) -> int:
+def b3_in_trace(trace_path, kernel=None) -> int:
+    """The launches of B3 (or of `kernel`, by name) in a torch.profiler trace."""
     events = json.loads(Path(trace_path).read_text()).get("traceEvents", [])
     return sum(1 for e in events if str(e.get("cat", "")).lower() == "kernel"
-               and B3_KERNEL in str(e.get("name", "")))
+               and (kernel or B3_KERNEL) in str(e.get("name", "")))
 
 
 def sweep_run(root):
@@ -2977,37 +2999,35 @@ def sweep_run(root):
             "objectives": [r["objective"] for r in rows]}
 
 
-def packed_path(fc, mas, host_build):
-    """Phase 19 in a temporary directory outside the checkout, deleted after."""
-    import shutil
-    import tempfile
-
+def packed_path(fc, mas, host_build, root):
+    """Phase 19 in `root`, a temporary directory outside the checkout that
+    main deletes after phase 20 (which trains on its .pak files). Returns
+    the phase's numbers, and what phase 20 takes from it: the .pak paths,
+    the config, and the host collator's runs' step-1 logs and fit steps."""
     t_phase = time.perf_counter()
-    root = Path(tempfile.mkdtemp(prefix="chip_smoke_packed_"))
-    try:
-        print(f"  (a) the host collator: {host_build['path']} built in "
-              f"{host_build['seconds']:.1f} s in phase 2, beside the kernels", flush=True)
-        cfg = packed_config()
-        print("  (b) pack and collate", flush=True)
-        paks, collate = pack_and_collate(root, cfg)
-        print(f"  (c) cli/train.py::run three ways (the first again last), {PACKED_STEPS} "
-              f"steps each, batch "
-              f"{cfg.data.batch_size}, one validation", flush=True)
-        runs = packed_runs(fc, mas, root, paks, cfg)
-        print("  (d) the scan of K = 2 against two cached steps", flush=True)
-        gc.collect()
-        torch.cuda.empty_cache()
-        scan = scan_against_steps(mas, cfg, runs.pop("cache_obj"))
-        gc.collect()
-        torch.cuda.empty_cache()
-        print("  (e) average", flush=True)
-        avg = average_run(fc, mas, root, runs.pop("cache_dir"), paks, cfg)
-        gc.collect()
-        torch.cuda.empty_cache()
-        print("  (f) sweep", flush=True)
-        sweep = sweep_run(root)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    print(f"  (a) the host collator: {host_build['path']} built in "
+          f"{host_build['seconds']:.1f} s in phase 2, beside the kernels", flush=True)
+    cfg = packed_config()
+    print("  (b) pack and collate", flush=True)
+    paks, collate = pack_and_collate(root, cfg)
+    print(f"  (c) cli/train.py::run three ways (the first again last), {PACKED_STEPS} "
+          f"steps each, batch "
+          f"{cfg.data.batch_size}, one validation", flush=True)
+    runs = packed_runs(fc, mas, root, paks, cfg)
+    print("  (d) the scan of K = 2 against two cached steps", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    scan = scan_against_steps(mas, cfg, runs.pop("cache_obj"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("  (e) average", flush=True)
+    avg = average_run(fc, mas, root, runs.pop("cache_dir"), paks, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("  (f) sweep", flush=True)
+    sweep = sweep_run(root)
+    handed = {"paks": paks, "cfg": cfg, "step1": runs["packed"]["step1"],
+              "fit_ms": {name: runs[name]["fit_ms"] for name in ("packed", "packed_again")}}
     out = {"host_build_s": host_build["seconds"], "collate": collate,
            "runs": {k: {m: v[m] for m in ("b3", "b4", "b1", "fit_ms", "run_s", "loaders_s",
                                           "cache_bytes_allocated", "arena_bytes", "val_total")}
@@ -3015,6 +3035,276 @@ def packed_path(fc, mas, host_build):
            "step1_gap": runs["step1_gap"], "scan": scan, "average": avg, "sweep": sweep,
            "phase_s": time.perf_counter() - t_phase}
     print(f"  phase 19 took {out['phase_s']:.1f} s", flush=True)
+    return out, handed
+
+
+# phase 20: parallelism (one process per device; the machine has one card)
+PARALLEL_STEPS = 3  # (a): the first launch's steps; the second resumes to PARALLEL_STEPS + 1
+PARALLEL_ROWS = 128  # (b): phase 7's batch, as 2 ranks x 64
+PARALLEL_TIMEOUT_S = 120  # a collective that waits longer raises
+LAUNCH_LIMIT_S = 300  # one launch of cli/train.py, start to end
+PARALLEL_DEVICE = "cuda:0"  # (b): both ranks' device
+B4_KERNEL = "mas_extract_kernel"  # csrc/mas_extract.cu's __global__, as the trace names it
+BACKEND = re.compile(r"process group: backend (\w+), rank (\d+) of (\d+), device (\S+)")
+
+
+def launch_train(root, name, cfg, paks, steps, *flags):
+    """`python -m torch.distributed.run --standalone --nproc_per_node 1 -m
+    optispeech_tpu_torch.cli.train --distributed` on `cfg` (written as YAML)
+    and phase 19's .pak files, into root/name; returns (the launch's wall
+    seconds, its output)."""
+    import yaml
+
+    from optispeech_tpu_torch.config import to_dict
+
+    cfg_path = root / f"{name}-{steps}.yaml"
+    # YAML 1.1 reads JSON's 1e-08 as a string: yaml writes it as 1.0e-08
+    cfg_path.write_text(yaml.safe_dump(json.loads(json.dumps(to_dict(cfg)))))
+    repo = Path(__file__).resolve().parent
+    # the CLI leaves PyTorch's TF32 defaults (cuDNN's convolutions in TF32):
+    # NVIDIA's libraries read this variable and keep float32, as phase 1 does here
+    env = {**os.environ, "NVIDIA_TF32_OVERRIDE": "0", "PYTHONPATH": os.pathsep.join(
+        [str(repo)] + [v for v in [os.environ.get("PYTHONPATH")] if v])}
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "1", "-m", "optispeech_tpu_torch.cli.train", "--distributed", "--config",
+           str(cfg_path), "--out-dir", str(root / name), "--max-steps", str(steps),
+           "--packed-train", str(paks["train"]), "--packed-val", str(paks["val"]),
+           "--dist-timeout", str(PARALLEL_TIMEOUT_S), "--no-print-config", *flags]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=repo, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=LAUNCH_LIMIT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"{name}: the launch ran past {LAUNCH_LIMIT_S} s; killed")
+    seconds = time.perf_counter() - t0
+    assert proc.returncode == 0, f"{name}: return code {proc.returncode}\n{out[-6000:]}"
+    return seconds, out
+
+
+def one_rank_nccl(root, handed):
+    """(a): cli/train.py --distributed on one rank under NCCL, PARALLEL_STEPS
+    steps with a validation and one checkpoint, then a second launch that
+    resumes to PARALLEL_STEPS + 1 and traces that step and its validation;
+    step 1 against phase 19's run without a group."""
+    import dataclasses
+
+    cfg = dataclasses.replace(handed["cfg"], val_every_n_steps=PARALLEL_STEPS,
+                              ckpt_every_n_steps=100 * PARALLEL_STEPS)
+    first_s, out = launch_train(root, "nccl", cfg, handed["paks"], PARALLEL_STEPS)
+    backend = BACKEND.findall(out)
+    assert backend == [("nccl", "0", "1", "cuda:0")], backend
+    run = root / "nccl"
+    ckpt = sorted(p.name for p in (run / "checkpoints").iterdir())
+    state = torch.load(run / "checkpoints" / str(PARALLEL_STEPS) / "state.pt",
+                       map_location="cpu", weights_only=True)
+    rows = [json.loads(x) for x in (run / "metrics.jsonl").read_text().splitlines()]
+    fit_ms = {r["step"]: 1e3 / r["perf/steps_per_sec"] for r in rows if "perf/steps_per_sec" in r}
+    step1 = next(r for r in rows if r["step"] == 1 and "total_loss/generator" in r)
+    step1 = {k: v for k, v in step1.items() if not k.startswith("perf/")}
+    want = handed["step1"]
+    assert set(step1) == set(want), set(step1) ^ set(want)
+    gaps = {k: abs(step1[k] - want[k]) / max(abs(want[k]), 1e-12) for k in want if k != "step"}
+    worst = max(gaps, key=gaps.get)
+    resumed = dataclasses.replace(cfg, val_every_n_steps=PARALLEL_STEPS + 1)
+    second_s, out2 = launch_train(root, "nccl", resumed, handed["paks"], PARALLEL_STEPS + 1,
+                                  "--profile-steps", f"{PARALLEL_STEPS},{PARALLEL_STEPS + 1}")
+    trace = run / "profile" / "trace.json"
+    b3, b4 = b3_in_trace(trace), b3_in_trace(trace, B4_KERNEL)
+    b1 = b3_in_trace(trace, "convnext_block_kernel")
+    rows = [json.loads(x) for x in (run / "metrics.jsonl").read_text().splitlines()]
+    n_val = -(-VAL_ITEMS // cfg.data.batch_size)
+    vals = [r["step"] for r in rows if "total_loss/val_total" in r]
+    print(f"  (a) backend {backend[0][0]}, rank 0 of 1 on {backend[0][3]}; launch 1: "
+          f"{PARALLEL_STEPS} steps of batch {cfg.data.batch_size} in {first_s:.1f} s of wall "
+          f"(the launcher, start-up, a validation and the checkpoint included); the "
+          f"checkpoint's rank-0 files {ckpt}, {len(state['rngs'])} rank RNG state(s) in it",
+          flush=True)
+    print(f"  fit step ms (perf/steps_per_sec) "
+          + ", ".join(f"{k}: {v:.1f}" for k, v in fit_ms.items())
+          + "; phase 19's run without a group (host collator, first / last): "
+          + " / ".join(", ".join(f"{k}: {v:.1f}" for k, v in handed["fit_ms"][n].items())
+                       for n in ("packed", "packed_again")), flush=True)
+    print(f"  step 1 against phase 19's run without a group: largest relative log gap "
+          f"{gaps[worst]:.2e} ({worst}; rtol {STEP_LOG_RTOL})", flush=True)
+    print(f"  launch 2 resumed {PARALLEL_STEPS} -> {PARALLEL_STEPS + 1} in {second_s:.1f} s; "
+          f"its trace of step {PARALLEL_STEPS + 1} and its validation: B3 {b3}, B4 {b4} "
+          f"({n_val} val batch(es)), B1 {b1}; validations at steps {vals}", flush=True)
+    assert ckpt == [str(PARALLEL_STEPS), "config.json", f"loader_state-{PARALLEL_STEPS}.json"], ckpt
+    assert len(state["rngs"]) == 1
+    assert gaps[worst] <= STEP_LOG_RTOL, f"{worst}: step 1 under the group differs by {gaps[worst]}"
+    assert BACKEND.findall(out2)[0][0] == "nccl"
+    assert b3 == 1, f"B3 {b3} in the trace of one step"
+    assert b4 == n_val, f"B4 {b4} in the trace of one validation of {n_val} batch(es)"
+    assert b1 == 0, f"B1 {b1} in training"
+    assert vals == [PARALLEL_STEPS, PARALLEL_STEPS + 1], vals
+    bad = [(r["step"], k) for r in rows for k, v in r.items() if not np.isfinite(v)]
+    assert not bad, f"non-finite logged values at {bad}"
+    return {"backend": backend[0][0], "fit_ms": fit_ms, "step1_gap": gaps[worst],
+            "launch_s": [first_s, second_s], "b3_per_step": b3, "b4_per_val_batch": b4 / n_val,
+            "checkpoint_files": ckpt}
+
+
+GLOO_RANK = """
+import json, sys
+sys.path.insert(0, {repo!r})
+import chip_smoke
+print(json.dumps(chip_smoke.gloo_rank()))
+"""
+
+
+def gloo_rank() -> dict:
+    """(b), in one of two processes on cuda:0: `init_distributed(backend=
+    "gloo")`, the phase-7 batch's shard of this rank, one
+    `make_train_step(cfg, mesh)` step without dropout, its global logs, the
+    parameters' digest, the peak memory, B3's launches, and the reducer
+    timed on gradients of G's and D's shapes."""
+    from optispeech_tpu_torch.ops import mas
+    from optispeech_tpu_torch.parallel import (
+        init_distributed,
+        make_mesh,
+        reduce_logs,
+        shard_batch,
+    )
+    from optispeech_tpu_torch.parallel.mesh import all_reduce_grads, parameter_digest
+    from optispeech_tpu_torch.training.state import init_train_state
+    from optispeech_tpu_torch.training.step import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = init_distributed(device=PARALLEL_DEVICE, backend="gloo",
+                              timeout_s=PARALLEL_TIMEOUT_S)
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    mesh = make_mesh()
+    cfg = without_dropout(training_config())
+    state = init_train_state(cfg, device, seed=0, rank=rank)
+    t_text, t_mel = MAS_SHAPE[2], MAS_SHAPE[1]
+    batch = shard_batch(training_batch(cfg, PARALLEL_ROWS, t_text, t_mel, device), mesh)
+    step = make_train_step(cfg, mesh)
+    torch.cuda.reset_peak_memory_stats()
+    mas.viterbi_decode.launches = 0
+    logs = reduce_logs(step(state, batch), mesh)
+    torch.cuda.synchronize()
+    b3 = mas.viterbi_decode.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    out = {"rank": rank, "rows": int(batch["x"].shape[0]), "b3": b3, "peak_gib": peak,
+           "logs": {k: float(v) for k, v in logs.items()},
+           "digest": parameter_digest([state.generator, state.discriminator])}
+    for part, opt in (("g", state.g_opt), ("d", state.d_opt)):
+        grads = [torch.ones_like(p) for p in opt.params]
+        ms = []
+        for _ in range(4):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            all_reduce_grads(grads, mesh)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        out[f"reducer_{part}_ms"] = statistics.median(ms[1:])
+        out[f"reducer_{part}_mib"] = sum(g.numel() * g.element_size() for g in grads) / 2 ** 20
+    dist.destroy_process_group()
+    return out
+
+
+def two_ranks_gloo():
+    """(b): one process's step over PARALLEL_ROWS rows (no dropout, phase
+    7's shape), then two processes on the one card, each stepping on its
+    half over gloo; each rank's logs against the one process's, and both
+    ranks' parameters after the step equal bit for bit."""
+    from optispeech_tpu_torch.parallel.mesh import parameter_digest
+    from optispeech_tpu_torch.training.state import init_train_state
+    from optispeech_tpu_torch.training.step import make_train_step
+
+    cfg = without_dropout(training_config())
+    state = init_train_state(cfg, PARALLEL_DEVICE, seed=0)
+    batch = training_batch(cfg, PARALLEL_ROWS, MAS_SHAPE[2], MAS_SHAPE[1], PARALLEL_DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    want = {k: float(v) for k, v in make_train_step(cfg)(state, batch).items()}
+    one_ms = 1e3 * (time.perf_counter() - t0)
+    one_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    one_digest = parameter_digest([state.generator, state.discriminator])
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    repo = Path(__file__).resolve().parent
+    env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()),
+           "WORLD_SIZE": "2"}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", GLOO_RANK.format(repo=str(repo))],
+                              cwd=repo, env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              start_new_session=True) for r in range(2)]
+    results = []
+    try:
+        for r, proc in enumerate(procs):
+            out, err = proc.communicate(timeout=LAUNCH_LIMIT_S)
+            assert proc.returncode == 0, f"gloo rank {r}: return code {proc.returncode}\n" \
+                                         f"{err[-6000:]}"
+            results.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
+    wall_s = time.perf_counter() - t0
+    gaps = {(r["rank"], k): abs(r["logs"][k] - want[k]) / max(abs(want[k]), 1e-12)
+            for r in results for k in want}
+    worst = max(gaps, key=gaps.get)
+    reducer_ms = statistics.mean(r["reducer_g_ms"] + r["reducer_d_ms"] for r in results)
+    print(f"  (b) one process, {PARALLEL_ROWS} rows: step {one_ms:.1f} ms (first, cold), peak "
+          f"{one_peak:.2f} GiB; two ranks on the one card over gloo, "
+          f"{results[0]['rows']} rows each, in {wall_s:.1f} s of wall (start-up included)",
+          flush=True)
+    for r in results:
+        print(f"  rank {r['rank']}: B3 {r['b3']}, peak {r['peak_gib']:.2f} GiB, reducer (gloo "
+              f"through the host, not NCCL) G {r['reducer_g_ms']:.1f} ms for "
+              f"{r['reducer_g_mib']:.1f} MiB, D {r['reducer_d_ms']:.1f} ms for "
+              f"{r['reducer_d_mib']:.1f} MiB", flush=True)
+    print(f"  each rank's step-1 logs (grad_norm/* included) against the one process's: "
+          f"largest relative gap {gaps[worst]:.2e} ({worst}; rtol {STEP_LOG_RTOL}); the ranks' "
+          f"parameters equal {results[0]['digest'] == results[1]['digest']}; equal to the one "
+          f"process's {results[0]['digest'] == one_digest}", flush=True)
+    assert all(r["b3"] == 1 for r in results), [r["b3"] for r in results]
+    assert gaps[worst] <= STEP_LOG_RTOL, f"{worst} differs by {gaps[worst]}"
+    assert results[0]["digest"] == results[1]["digest"], "the ranks' parameters differ"
+    return {"b3_per_rank": [r["b3"] for r in results], "gap": gaps[worst],
+            "reducer_ms_per_step": reducer_ms,
+            "reducer_mib_per_turn": {"g": results[0]["reducer_g_mib"],
+                                     "d": results[0]["reducer_d_mib"]},
+            "peak_gib": [r["peak_gib"] for r in results], "one_process_peak_gib": one_peak,
+            "wall_s": wall_s}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_path(root, handed):
+    """Phase 20: (a) one rank under NCCL through the launcher, (b) two ranks
+    on the one card over gloo."""
+    t_phase = time.perf_counter()
+    # the launched processes need the card's memory: this process keeps none cached
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  this process holds {torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB of the card "
+          "(reserved by its allocator) while the ranks run", flush=True)
+    nccl = one_rank_nccl(root, handed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gloo = two_ranks_gloo()
+    out = {"nccl_one_rank": nccl, "gloo_two_ranks": gloo,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"  phase 20 took {out['phase_s']:.1f} s", flush=True)
     return out
 
 
@@ -3144,11 +3434,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     others = other_backbones(fc, mas)
 
-    phase("19. the packed data path and the run tools (cli/pack.py, --packed-train, "
-          "--device-cache, the scan, cli/average.py, cli/infer.py, cli/sweep.py)")
-    gc.collect()
-    torch.cuda.empty_cache()
-    packed = packed_path(fc, mas, host_build)
+    # phases 19 and 20 in a temporary directory outside the checkout, deleted after
+    scratch = Path(tempfile.mkdtemp(prefix="chip_smoke_packed_"))
+    try:
+        phase("19. the packed data path and the run tools (cli/pack.py, --packed-train, "
+              "--device-cache, the scan, cli/average.py, cli/infer.py, cli/sweep.py)")
+        gc.collect()
+        torch.cuda.empty_cache()
+        packed, handed = packed_path(fc, mas, host_build, scratch)
+
+        phase("20. parallelism (cli/train.py --distributed on one rank under NCCL, then a "
+              "resume; two ranks on the one card over gloo)")
+        gc.collect()
+        torch.cuda.empty_cache()
+        parallel = parallel_path(scratch, handed)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
 
     trunk = rows["trunk"]
     kernel = {
@@ -3209,6 +3510,10 @@ def main() -> int:
             **{name: run["b3"] for name, run in packed["runs"].items()},
             "unit": f"per run of {PACKED_STEPS} steps", "scan_and_two_steps": packed["scan"]["b3"],
             "sweep_trials_traced": packed["sweep"]["b3"]},
+        "launches_parallel": {
+            "nccl_one_rank_per_step": parallel["nccl_one_rank"]["b3_per_step"],
+            "gloo_two_ranks_per_rank": parallel["gloo_two_ranks"]["b3_per_rank"],
+            "unit": "per step (phase 20)"},
         "max_abs_err": mas_err["durations"],
         "ms": mas_row["ms"], "plain_ms": mas_row["plain_ms"], "bound_ms": mas_row["bound_ms"],
         "bound_by": mas_row["bound_by"], "library_ms": None, "shape": mas_row["shape"],
@@ -3227,6 +3532,9 @@ def main() -> int:
         "launches_packed_path": {
             **{name: run["b4"] for name, run in packed["runs"].items()},
             "unit": "per validation of one batch", "average_two_passes": packed["average"]["b4"]},
+        "launches_parallel": {
+            "nccl_one_rank_per_val_batch": parallel["nccl_one_rank"]["b4_per_val_batch"],
+            "unit": "per validation batch (phase 20(a), in a trace)"},
         "max_abs_err": ext_err["durations"],
         "ms": ext_row["ms"], "plain_ms": ext_row["plain_ms"], "bound_ms": ext_row["bound_ms"],
         "bound_by": ext_row["bound_by"], "library_ms": None, "shape": ext_row["shape"],
@@ -3256,6 +3564,7 @@ def main() -> int:
     print("\n  export: " + json.dumps(export))
     print("\n  other backbones: " + json.dumps(others))
     print("\n  packed path: " + json.dumps(packed))
+    print("\n  parallelism: " + json.dumps(parallel))
     print(f"\n  build {build_s:.1f} s; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [kernel, wide_kernel, mas_kernel, extract_kernel, int8_kernel]}))
     print(card)

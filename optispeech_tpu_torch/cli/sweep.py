@@ -197,6 +197,28 @@ def run_trial(i: int, spec: dict, draw: dict, trial_dir: str,
     }
 
 
+CONSTRAINT_OPS = (">=", "<=", ">", "<")
+
+
+def check_constraints(constraints) -> list[dict]:
+    """The spec's constraints, each checked before any trial runs: a
+    mapping with a `metric`, a numeric `value` and an `op` among
+    CONSTRAINT_OPS (default ">="). Raises ValueError naming the first bad
+    one."""
+    constraints = constraints or []
+    if not isinstance(constraints, list):
+        raise ValueError(f"constraints must be a list, got {constraints!r}")
+    for c in constraints:
+        if not isinstance(c, dict) or not c.get("metric"):
+            raise ValueError(f"constraint {c!r} needs a `metric`")
+        if c.get("op", ">=") not in CONSTRAINT_OPS:
+            raise ValueError(f"constraint {c!r}: op must be one of {', '.join(CONSTRAINT_OPS)}")
+        value = c.get("value")
+        if isinstance(value, bool) or not isinstance(value, (int, float)):
+            raise ValueError(f"constraint {c!r} needs a numeric `value`")
+    return constraints
+
+
 def _meets(value, op: str, target: float) -> bool:
     if value is None:
         return False
@@ -251,6 +273,11 @@ def main(argv=None):
         spec = yaml.safe_load(f)
     direction = spec.get("direction", "min")
     metric = spec.get("objective", "total_loss/val_total")
+    # a bad constraint fails here, not in best_of after every trial has run
+    try:
+        constraints = check_constraints(spec.get("constraints"))
+    except ValueError as e:
+        raise SystemExit(f"{args.spec}: {e}") from e
     results_path = os.path.join(args.out_dir, "sweep_results.jsonl")
 
     if args.report:
@@ -290,7 +317,7 @@ def main(argv=None):
             log.info(f"trial {i}: objective={result['objective']}"
                      + (" (pruned)" if result.get("pruned") else ""))
 
-    best = best_of(results, direction, constraints=spec.get("constraints"))
+    best = best_of(results, direction, constraints=constraints)
     if best is None:
         raise SystemExit("no trial produced the objective metric "
                          "(or every trial violated the constraints)")

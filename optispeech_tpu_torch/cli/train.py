@@ -5,6 +5,8 @@ Usage:
         [data.batch_size=64 ...] [--synthetic] [--device cpu] [--fast-dev-run] [--overfit N]
     python -m optispeech_tpu_torch.cli.train --packed-train train.pak --packed-val val.pak \
         [--device-cache [--cache-mel-dtype bfloat16] [--cache-wav-dtype int16]] ...
+    python -m torch.distributed.run --standalone --nproc_per_node 2 \
+        -m optispeech_tpu_torch.cli.train --distributed [--device cpu] ...
 
 `main` parses the flags and loads the YAML config; `run(cfg, args)` builds
 the loaders and the `Trainer`, fits, and exports the inference checkpoint to
@@ -15,6 +17,14 @@ packed train split to the device once and gathers each batch there
 (`data/device_cache.py`); validation stays on the host loader. `--device` defaults to the card. The debug harnesses are JAX's:
 --fast-dev-run, --overfit N, --limit FRAC, --debug-nans (autograd anomaly
 detection).
+
+`--distributed` trains data parallel, one process per device, in the
+process group that `python -m torch.distributed.run` describes
+(`parallel.init_distributed`: NCCL on `cuda:{LOCAL_RANK}`, gloo with
+`--device cpu`; without that environment it raises). Every loader then
+yields this rank's shard of each global batch of `data.batch_size`
+(`shard_id=rank, num_shards=world`), a device cache lies whole on every
+rank's device, and rank 0 alone writes metrics and checkpoints.
 """
 
 import argparse
@@ -26,31 +36,27 @@ from ..utils.pylogger import get_pylogger
 
 log = get_pylogger("optispeech_tpu_torch.train")
 
-# flags of the JAX CLI whose paths the port does not have yet
-NOT_PORTED = {
-    "distributed": "--distributed (training over several processes) is not ported yet "
-                   "(ROADMAP.md, queue A item 7)",
-}
-
-
 def build_packed_loaders(cfg, packed_train: str, packed_val: str = None,
                          device_cache: bool = False, device=None,
-                         cache_mel_dtype: str = "float32", cache_wav_dtype: str = "float32"):
+                         cache_mel_dtype: str = "float32", cache_wav_dtype: str = "float32",
+                         shard_id: int = 0, num_shards: int = 1):
     """(train loader, val loader or None) over packed arena files: the host
     collator's `PackedLoader`s, or with `device_cache` a `DeviceCacheLoader`
     over the train split uploaded to `device` (validation keeps the host
-    loader: it needs the whole ground-truth waveforms)."""
+    loader: it needs the whole ground-truth waveforms). Each yields shard
+    `shard_id` of `num_shards` of every global batch."""
     from ..data.packed import PackedDataset, PackedLoader
 
     d, f_min = cfg.data, cfg.generator.features.f_min
     caps = dict(max_text_len=d.max_text_len, max_mel_len=d.max_mel_len)
+    shard = dict(shard_id=shard_id, num_shards=num_shards)
 
     def host(path, shuffle):
         # val keeps partial batches: a val split smaller than the batch
         # size must still give val metrics
         return PackedLoader(PackedDataset(path, d.statistics, f_min=f_min), d.batch_size,
                             d.text_bucket_size, d.mel_bucket_size, shuffle=shuffle,
-                            seed=d.seed, drop_last=shuffle, **caps)
+                            seed=d.seed, drop_last=shuffle, **caps, **shard)
 
     val = host(packed_val, False) if packed_val else None
     if not device_cache:
@@ -61,13 +67,15 @@ def build_packed_loaders(cfg, packed_train: str, packed_val: str = None,
                                text_bucket=d.text_bucket_size, mel_bucket=d.mel_bucket_size,
                                mel_dtype=cache_mel_dtype, wav_dtype=cache_wav_dtype, **caps)
     train = DeviceCacheLoader(cache, d.batch_size, d.text_bucket_size, d.mel_bucket_size,
-                              shuffle=True, seed=d.seed, **caps)
+                              shuffle=True, seed=d.seed, **caps, **shard)
     return train, val
 
 
-def build_loaders(cfg, synthetic: bool, overfit: int = 0, limit: float = 1.0):
+def build_loaders(cfg, synthetic: bool, overfit: int = 0, limit: float = 1.0,
+                  shard_id: int = 0, num_shards: int = 1):
     """(train loader, val loader) over the config's filelists, or over
-    synthetic utterances."""
+    synthetic utterances; each yields shard `shard_id` of `num_shards` of
+    every global batch."""
     from ..data.datamodule import BucketedCollate, DataLoader, SyntheticDataset, TextWavDataset
 
     feats = cfg.generator.features
@@ -92,8 +100,11 @@ def build_loaders(cfg, synthetic: bool, overfit: int = 0, limit: float = 1.0):
     if limit < 1.0 and hasattr(train_ds, "file_paths"):
         n = max(int(len(train_ds.file_paths) * limit), cfg.data.batch_size)
         train_ds.file_paths = train_ds.file_paths[:n]
-    train = DataLoader(train_ds, cfg.data.batch_size, collate, shuffle=True, seed=cfg.data.seed)
-    val = DataLoader(val_ds, cfg.data.batch_size, collate, shuffle=False, drop_last=False)
+    shard = dict(shard_id=shard_id, num_shards=num_shards)
+    train = DataLoader(train_ds, cfg.data.batch_size, collate, shuffle=True, seed=cfg.data.seed,
+                       **shard)
+    val = DataLoader(val_ds, cfg.data.batch_size, collate, shuffle=False, drop_last=False,
+                     **shard)
     return train, val
 
 
@@ -123,7 +134,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="load weights from a train checkpoint directory (G and D) or an "
                         "inference checkpoint (G), with fresh optimizers")
     p.add_argument("--profile-steps", default=None, help="START,STOP torch.profiler capture")
-    p.add_argument("--distributed", action="store_true", help="not ported yet")
+    p.add_argument("--distributed", action="store_true",
+                   help="data parallel, one process per device, in the process group of "
+                        "`python -m torch.distributed.run` (NCCL; gloo with --device cpu)")
+    p.add_argument("--dist-timeout", type=float, default=300,
+                   help="seconds a collective of --distributed may wait before it raises")
     p.add_argument("--no-print-config", action="store_true",
                    help="skip the effective config at startup")
     p.add_argument("overrides", nargs="*", help="dotted config overrides key=value")
@@ -133,33 +148,49 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def _check_ported(args: argparse.Namespace):
-    for flag, message in NOT_PORTED.items():
-        if getattr(args, flag, None):
-            raise NotImplementedError(message)
-
-
 def run(cfg, args: argparse.Namespace, train_loader=None, val_loader=None):
     """Train `cfg` as `args` ask: the given loaders, else those of
     `build_packed_loaders` (with --packed-train) or `build_loaders`, then
     `Trainer.init_or_restore_state`, `fit` and the inference checkpoint.
-    Returns (trainer, final state)."""
+    With --distributed the process group is joined first and left at the
+    end. Returns (trainer, final state)."""
+    if not args.distributed:
+        return _run(cfg, args, train_loader, val_loader)
+    import torch.distributed as dist
+
+    from ..parallel import init_distributed, make_mesh
+
+    device = init_distributed(args.device, timeout_s=args.dist_timeout)
+    log.info(f"process group: backend {dist.get_backend()}, rank {dist.get_rank()} of "
+             f"{dist.get_world_size()}, device {device}")
+    try:
+        return _run(cfg, args, train_loader, val_loader, device=device,
+                    mesh=make_mesh(cfg.num_devices))
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(cfg, args, train_loader, val_loader, device=None, mesh=None):
     from ..config import to_dict
+    from ..parallel import data_rank, data_size
     from ..training.trainer import Trainer
 
-    _check_ported(args)
     out_dir = args.out_dir or f"runs/{cfg.run_name}"
-    if not args.no_print_config:
+    shard = dict(shard_id=data_rank(mesh), num_shards=data_size(mesh))
+    if not args.no_print_config and shard["shard_id"] == 0:
         log.info("Effective config:\n" + json.dumps(to_dict(cfg), indent=2))
-    trainer = Trainer(cfg, out_dir=out_dir, device=args.device, debug_nans=args.debug_nans)
+    trainer = Trainer(cfg, out_dir=out_dir, device=device or args.device,
+                      debug_nans=args.debug_nans, mesh=mesh)
     if train_loader is None and args.packed_train:
         train_loader, val_loader = build_packed_loaders(
             cfg, args.packed_train, args.packed_val, device_cache=args.device_cache,
             device=trainer.device, cache_mel_dtype=args.cache_mel_dtype,
-            cache_wav_dtype=args.cache_wav_dtype)
+            cache_wav_dtype=args.cache_wav_dtype, **shard)
     elif train_loader is None:
-        train_loader, val_loader = build_loaders(cfg, args.synthetic, args.overfit, args.limit)
-    log.info(f"Training `{cfg.run_name}` -> {out_dir} on {trainer.device}")
+        train_loader, val_loader = build_loaders(cfg, args.synthetic, args.overfit, args.limit,
+                                                 **shard)
+    log.info(f"Training `{cfg.run_name}` -> {out_dir} on {trainer.device}"
+             + (f" (rank {trainer.rank} of {trainer.world})" if mesh is not None else ""))
     state = trainer.init_or_restore_state(forced_resume_from=args.forced_resume)
     profile_steps = (tuple(int(s) for s in args.profile_steps.split(","))
                      if args.profile_steps else None)
@@ -172,7 +203,6 @@ def run(cfg, args: argparse.Namespace, train_loader=None, val_loader=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    _check_ported(args)
     from ..config import finalize, merge_overrides
     from ..utils.yamlcfg import load_experiment
 

@@ -105,7 +105,11 @@ class BucketedCollate:
         self.max_mel_len = max_mel_len
         self.do_normalize = do_normalize
 
-    def __call__(self, batch: list[dict]) -> dict:
+    def __call__(self, batch: list[dict], t_text: Optional[int] = None,
+                 t_mel: Optional[int] = None) -> dict:
+        """`t_text`/`t_mel` force the padded lengths (before bucket
+        rounding): the shards of one global batch all pad to the global
+        batch's longest item, so that every rank steps at one shape."""
         b = len(batch)
         for item in batch:  # clamp overly long utterances to the caps
             if self.max_text_len:
@@ -116,8 +120,8 @@ class BucketedCollate:
                 item["pitch"] = item["pitch"][: self.max_mel_len]
                 item["wav"] = item["wav"][: self.max_mel_len * self.hop_length]
 
-        t_text = max(i["x"].shape[-1] for i in batch)
-        t_mel = max(i["mel"].shape[-1] for i in batch)
+        t_text = t_text or max(i["x"].shape[-1] for i in batch)
+        t_mel = t_mel or max(i["mel"].shape[-1] for i in batch)
         if self.max_text_len:
             t_text = min(t_text, self.max_text_len)
         if self.max_mel_len:
@@ -177,15 +181,24 @@ class BucketedCollate:
 class DataLoader:
     """Length-grouped, shuffled batching with a background prefetch thread.
 
-    One process reads every batch: the JAX loader's sharding over processes
-    comes with multi-process training (ROADMAP.md, queue A item 7).
+    Data parallel: pass `shard_id=rank, num_shards=world`. Every rank
+    computes the same global batch order (same seed and epoch), then
+    collates only its `batch_size / num_shards` slice of each batch, padded
+    to the global batch's lengths (`_collate_shard`), so that the shards of
+    the ranks put together are the global batch. A partial batch kept with
+    `drop_last=False` is padded by wrapping its items, so no shard is short
+    or empty.
 
     Resume: `state_dict()/load_state_dict()` capture (epoch, position) so a
     restored run continues from the exact batch it stopped at."""
 
     def __init__(self, dataset, batch_size: int, collate: BucketedCollate,
                  shuffle: bool = True, seed: int = 0, drop_last: bool = True,
-                 length_group_size: int = 8, prefetch: int = 2):
+                 length_group_size: int = 8, prefetch: int = 2,
+                 shard_id: int = 0, num_shards: int = 1):
+        if batch_size % num_shards:
+            raise ValueError(f"global batch_size {batch_size} must be divisible by "
+                             f"num_shards {num_shards}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.collate = collate
@@ -194,6 +207,8 @@ class DataLoader:
         self.drop_last = drop_last
         self.length_group_size = length_group_size
         self.prefetch = prefetch
+        self.shard_id = shard_id
+        self.num_shards = num_shards
         self.epoch = 0
         self._pos = 0  # batches already consumed in the current epoch
         # (text_len, mel_len) per item, filled lazily: batch grouping needs
@@ -229,14 +244,30 @@ class DataLoader:
             for bstart in range(0, len(chunk), self.batch_size):
                 bat = chunk[bstart : bstart + self.batch_size]
                 if len(bat) == self.batch_size or not self.drop_last:
+                    if self.num_shards > 1 and len(bat) < self.batch_size:
+                        # equal, non-empty shards: wrap the partial batch
+                        bat = (bat * -(-self.batch_size // len(bat)))[: self.batch_size]
                     batches.append(bat)
         if self.shuffle:
             rnd.shuffle(batches)
-        return batches
+        return batches  # global batches; `_collate_shard` slices them
 
     def __len__(self):
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def _collate_shard(self, bat: list[int]) -> dict:
+        """This shard's slice of the global batch `bat`, padded to the global
+        batch's longest text and mel (from the length cache: only the
+        slice's items are read in full)."""
+        if self.num_shards == 1:
+            return self.collate([self.dataset[i] for i in bat])
+        lens = [self._lengths_of(i) for i in bat]
+        local = self.batch_size // self.num_shards
+        lo = self.shard_id * local
+        items = [self.dataset[i] for i in bat[lo:lo + local]]
+        return self.collate(items, t_text=max(n[0] for n in lens),
+                            t_mel=max(n[1] for n in lens))
 
     def __iter__(self) -> Iterator[dict]:
         batches = self._batch_indices()[self._pos :]
@@ -245,7 +276,7 @@ class DataLoader:
 
         def worker():
             for bat in batches:
-                q.put(self.collate([self.dataset[i] for i in bat]))
+                q.put(self._collate_shard(bat))
             q.put(stop)
 
         t = threading.Thread(target=worker, daemon=True)

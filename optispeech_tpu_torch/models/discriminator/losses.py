@@ -2,7 +2,12 @@
 `optispeech_tpu/models/discriminator/losses.py`): hinge losses, feature
 matching, mel L1 (torchaudio htk mel, power 1, log clip 1e-7) and
 multi-resolution STFT (spectral convergence + log-magnitude L1, magnitudes
-clamped at sqrt(1e-7)). The spectral math runs in float32."""
+clamped at sqrt(1e-7)). The spectral math runs in float32.
+
+Under data parallelism (`mesh`) the spectral convergence, a ratio of two
+norms over the whole batch, is each rank's share of the global ratio
+(`_global_norm_ratio`); the means are the callers' to divide by the world
+size (`vocos.py`)."""
 
 import math
 
@@ -10,6 +15,7 @@ import torch
 
 from ...ops.audio import safe_log
 from ...ops.stft import mel_filterbank, stft_magnitude
+from ...parallel.mesh import all_reduce_sum, data_size, mean_share
 
 
 def generator_adv_loss(disc_outputs):
@@ -54,20 +60,39 @@ def _stft_mag(x, fft_size, hop, win_length):
                                       center=True), min=math.sqrt(1e-7))
 
 
-def stft_loss(x, y, fft_size, hop, win_length):
-    """(spectral convergence, log-magnitude L1)."""
+def _global_norm_ratio(num_sq, den_sq, mesh):
+    """This rank's share of sqrt(N) / sqrt(D), where N and D are `num_sq`
+    and `den_sq` summed over the data-parallel ranks: its value is the
+    ratio over the world size, and its gradient, summed over the ranks, is
+    the gradient of the ratio (the chain rule through N and D, with the
+    all-reduced sums held as constants)."""
+    total = all_reduce_sum(torch.stack([num_sq, den_sq]).detach(), mesh)
+    n, d = total[0], total[1]
+    ratio = torch.sqrt(n) / torch.sqrt(d)
+    tiny = torch.finfo(ratio.dtype).tiny
+    return (ratio / data_size(mesh)
+            + (num_sq - num_sq.detach()) * (ratio / torch.clamp(2 * n, min=tiny))
+            - (den_sq - den_sq.detach()) * (ratio / torch.clamp(2 * d, min=tiny)))
+
+
+def stft_loss(x, y, fft_size, hop, win_length, mesh=None):
+    """(spectral convergence, log-magnitude L1); with a `mesh`, this rank's
+    shares of the global batch's."""
     x_mag = _stft_mag(x, fft_size, hop, win_length)
     y_mag = _stft_mag(y, fft_size, hop, win_length)
-    sc = torch.linalg.vector_norm(y_mag - x_mag) / torch.linalg.vector_norm(y_mag)
-    mag = torch.abs(torch.log(y_mag) - torch.log(x_mag)).mean()
+    mag = mean_share(torch.abs(torch.log(y_mag) - torch.log(x_mag)).mean(), mesh)
+    if data_size(mesh) == 1:
+        sc = torch.linalg.vector_norm(y_mag - x_mag) / torch.linalg.vector_norm(y_mag)
+    else:
+        sc = _global_norm_ratio(torch.sum((y_mag - x_mag) ** 2), torch.sum(y_mag ** 2), mesh)
     return sc, mag
 
 
 def multi_resolution_stft_loss(x, y, fft_sizes=(1024, 2048, 512), hop_sizes=(120, 240, 50),
-                               win_lengths=(600, 1200, 240)):
+                               win_lengths=(600, 1200, 240), mesh=None):
     sc_loss, mag_loss = 0.0, 0.0
     for fs, ss, wl in zip(fft_sizes, hop_sizes, win_lengths):
-        sc, mag = stft_loss(x, y, fs, ss, wl)
+        sc, mag = stft_loss(x, y, fs, ss, wl, mesh)
         sc_loss = sc_loss + sc
         mag_loss = mag_loss + mag
     n = len(fft_sizes)

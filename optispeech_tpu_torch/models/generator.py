@@ -32,6 +32,7 @@ from ..ops import (
     viterbi_decode,
     viterbi_decode_extract,
 )
+from ..parallel.mesh import mean_share
 from .losses import fastspeech2_loss
 from .modules.alignment import AlignmentModule
 from .modules.conformer import ConformerBackbone
@@ -128,7 +129,7 @@ class OptiSpeechGenerator(nn.Module):
 
     def forward(self, x, x_lengths, mel, mel_lengths, pitches, energies, sids=None, lids=None,
                 start_idx=None, generator: torch.Generator | None = None,
-                extract_durations: bool = False):
+                extract_durations: bool = False, mesh=None):
         """Training forward, or with `extract_durations` the validation forward.
 
         Args:
@@ -141,6 +142,10 @@ class OptiSpeechGenerator(nn.Module):
                 validation step): MAS runs the duration extraction
                 (`viterbi_decode_extract`), whose bin loss has no gradient,
                 instead of the training MAS.
+            mesh: a data-parallel mesh (`parallel/mesh.py`): the losses
+                are then this rank's share of the global batch's (the
+                masked means over every rank's tokens, the per-item means
+                over the world size).
 
         Returns a dict: wav_hat (B, segment*hop), start_idx, segment_size,
         loss and its parts, durations.
@@ -182,8 +187,10 @@ class OptiSpeechGenerator(nn.Module):
         wav_hat = self.vocoder(seg, f0=f0.detach(), generator=generator)
 
         d_l, p_l, e_l = fastspeech2_loss(duration_hat, pitch_hat, energy_hat, durations,
-                                         pitches_tok, energies_tok, x_lengths, t_text)
-        align_loss = forward_sum_loss(log_p_attn, x_lengths, mel_lengths) + bin_loss
+                                         pitches_tok, energies_tok, x_lengths, t_text, mesh)
+        # both are means over the items
+        align_loss = mean_share(forward_sum_loss(log_p_attn, x_lengths, mel_lengths) + bin_loss,
+                                mesh)
         lc = c.loss_coeffs
         loss = (align_loss * lc.lambda_align + d_l * lc.lambda_duration
                 + p_l * lc.lambda_pitch + e_l * lc.lambda_energy)

@@ -6,7 +6,9 @@ In eval mode with `fused`, each block whose shape JAX would tile
 of `ops.fused_convnext.convnext_block_fused`, B1's registered op: the CUDA
 kernel on the card, its twin on the CPU; any other block runs unfused,
 unless the caller passes `any_length=True` (the streaming windows, whose
-length JAX's rule does not tile: B1 takes any T). In training
+length JAX's rule does not tile: B1 takes any T). A block whose FFN is
+split over a tensor-parallel mesh (`parallel/tp.py`) runs unfused: the
+kernel takes the whole intermediate width. In training
 mode the blocks run unfused, with drop path drawn from the caller's
 `torch.Generator`, as in JAX (fused only when deterministic). Submodule
 names follow the reference's torch keys (`convnext.{i}.dwconv.weight`,
@@ -24,6 +26,7 @@ import torch
 from torch import nn
 
 from ...ops.fused_convnext import convnext_block_fused, kernel_takes, kernel_weights
+from ...parallel.tp import is_sharded
 from .core import Conv1d, LayerNorm, Linear, conv_btc, gelu
 
 
@@ -61,8 +64,9 @@ class ConvNeXtBlock(nn.Module):
 
     def forward(self, x, fused: bool = False, generator: Optional[torch.Generator] = None,
                 any_length: bool = False):
-        if fused and self.gamma is not None and (any_length or kernel_takes(
-                x.shape[1], self.pwconv1.in_features, self.pwconv1.out_features)):
+        if fused and self.gamma is not None and not is_sharded(self.pwconv1.weight) and (
+                any_length or kernel_takes(x.shape[1], self.pwconv1.in_features,
+                                           self.pwconv1.out_features)):
             *params, packed = self.fused_params()
             return convnext_block_fused(x, *params, packed=packed)
         h = conv_btc(self.dwconv, x)

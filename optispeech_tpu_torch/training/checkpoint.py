@@ -16,6 +16,14 @@ behind. A write that fails is logged at once, its step's loader state is
 deleted (no resume can then pair it with an older step), and the error is
 raised again at the next join.
 
+In a process group (`rank`, `world` of the manager; `world=None` without
+one) every rank calls `save`: the ranks' step RNG states are gathered to rank 0
+(`all_gather_object`), which alone writes the step, with them under
+`rngs`, and the loader state (the same on every rank). Every rank restores
+the same files on the host and copies them into its own device's tensors;
+rank r then takes saved RNG state r, or, where the checkpoint has fewer
+ranks, keeps the RNG of its seed and logs so.
+
 An inference checkpoint directory holds `config.json` (config and speaker
 list) and `generator.pt`, G's state dict; `OptiSpeech.load_from_checkpoint`
 reads it.
@@ -27,6 +35,7 @@ import shutil
 import threading
 
 import torch
+import torch.distributed as dist
 
 from ..config import ExperimentConfig, from_dict, to_dict
 from ..utils.pylogger import get_pylogger
@@ -80,11 +89,15 @@ def is_train_checkpoint_dir(path: str) -> bool:
 
 
 class TrainCheckpointManager:
-    """Rolling training checkpoints: keep the newest `keep`, write on a thread."""
+    """Rolling training checkpoints: keep the newest `keep`, write on a
+    thread; in a group of `world` ranks, rank 0 writes."""
 
-    def __init__(self, directory: str, keep: int = 10):
+    def __init__(self, directory: str, keep: int = 10, rank: int = 0,
+                 world: int | None = None):
         self.directory = _abs(directory)
         self.keep = keep
+        self.rank = rank
+        self.world = world
         os.makedirs(self.directory, exist_ok=True)
         self._worker: threading.Thread | None = None
         self._worker_error: BaseException | None = None
@@ -105,7 +118,15 @@ class TrainCheckpointManager:
              wait: bool = False):
         """Checkpoint `state` (a `TrainState`) as step `step`. The host copy
         is taken before this returns; the write runs on a thread that the
-        next save, `wait()`, `latest_step()` or `restore()` joins."""
+        next save, `wait()`, `latest_step()` or `restore()` joins. In a
+        group every rank calls this (it gathers the RNG states); only rank
+        0 writes."""
+        rngs = None
+        if self.world is not None:
+            rngs = [None] * self.world
+            dist.all_gather_object(rngs, state.rng.get_state())
+        if self.rank != 0:
+            return
         self._join_worker()
         with open(os.path.join(self.directory, "config.json"), "w") as f:
             json.dump({"config": to_dict(cfg)}, f, indent=2)
@@ -115,6 +136,8 @@ class TrainCheckpointManager:
             with open(self._loader_state_path(step), "w") as f:
                 json.dump({"step": step, "loader": loader_state}, f)
         host = to_host(state.state_dict())
+        if rngs is not None:
+            host["rngs"] = rngs
 
         def _work():
             try:
@@ -191,7 +214,15 @@ class TrainCheckpointManager:
         saved, step = self.read(step)
         if saved is None:
             return None, None
+        own = state.rng.get_state()  # this rank's seeded RNG
         state.load_state_dict(saved)
+        rngs = saved.get("rngs") or [saved["rng"]]
+        if self.rank < len(rngs):
+            state.rng.set_state(rngs[self.rank])
+        else:
+            state.rng.set_state(own)
+            log.info(f"rank {self.rank}: checkpoint {step} holds the RNG states of "
+                     f"{len(rngs)} ranks; this rank's RNG starts from its seed")
         return state, step
 
     def wait(self):

@@ -118,12 +118,22 @@ class TrainState:
         self.rng.set_state(state["rng"])
 
 
-def init_train_state(cfg: ExperimentConfig, device=None, seed: int = 0) -> TrainState:
+# the step RNG of data-parallel rank r is seeded with seed + r * RANK_SEED_STRIDE
+RANK_SEED_STRIDE = 7919
+
+
+def init_train_state(cfg: ExperimentConfig, device=None, seed: int = 0,
+                     rank: int = 0) -> TrainState:
     """Fresh G and D on `device` (default: the card; raises when there is
     none) from `seed` (flax's distributions; D's weight-norm scales set to
     ||v||), and the step RNG on the same device. G computes in
     `train_args.compute_dtype`, D in float32, as in JAX; both keep float32
-    parameters."""
+    parameters.
+
+    Data-parallel rank `rank` gets the same G and D and a step RNG of its
+    own, seeded with `seed + rank * RANK_SEED_STRIDE`, so that the ranks'
+    dropout masks and device-drawn segment starts differ as the rows of
+    JAX's global draw do; rank 0's is the RNG of a run without a group."""
     generator = OptiSpeechGenerator(cfg.generator,
                                     dtype=compute_dtype(cfg.train_args.compute_dtype))
     init_like_flax(generator, torch.Generator().manual_seed(seed))
@@ -131,4 +141,4 @@ def init_train_state(cfg: ExperimentConfig, device=None, seed: int = 0) -> Train
     init_discriminator(discriminator, torch.Generator().manual_seed(seed + 1))
     device = resolve_device(device)
     return TrainState(cfg, generator.to(device), discriminator.to(device),
-                      torch.Generator(device=device).manual_seed(seed))
+                      torch.Generator(device=device).manual_seed(seed + rank * RANK_SEED_STRIDE))

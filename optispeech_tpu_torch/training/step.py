@@ -29,26 +29,38 @@ both in eval mode.
 With G in bf16 (`train_args.compute_dtype: bfloat16`) the steps are the
 same: G returns `wav_hat` in float32, so D, which computes in float32, and
 the losses see float32, as in JAX.
+
+With a data-parallel `mesh` (`parallel/mesh.py`) each rank steps on its
+shard of the global batch: its losses are its shares of the global
+batch's, G's and D's gradients are summed over the ranks
+(`all_reduce_grads`, one flat buffer per turn) before the optimiser clips
+and applies them, every call under gradient accumulation, so that the
+step equals one process's step over the global batch. The logs are the
+rank's shares (`parallel.reduce_logs` sums them; `grad_norm/*`, the norm
+of the reduced gradient, is global already). Without a mesh nothing of
+this runs.
 """
 
 import torch
 
 from ..config import ExperimentConfig
 from ..ops.segments import get_segments
+from ..parallel.mesh import all_reduce_grads
 from .state import TrainState
 
 ADV_KEYS = ("loss_gen_mp", "loss_gen_mrd", "loss_fm_mp", "loss_fm_mrd", "mel_loss",
             "mr_stft_loss")
 
 
-def _generator_turn(gen, disc, batch, hop, rng, adversarial: bool, **kw):
+def _generator_turn(gen, disc, batch, hop, rng, adversarial: bool, mesh=None, **kw):
     """G's forward on `batch`, the matching ground-truth crop, and D's
     adversarial losses when `adversarial` (zeros otherwise). Returns
     (generator outputs, wav, adversarial loss, its log)."""
     host_seg = "wav_seg" in batch
     out = gen(batch["x"], batch["x_lengths"], batch["mel"].float(), batch["mel_lengths"],
               batch["pitches"], batch["energies"], batch.get("sids"), batch.get("lids"),
-              start_idx=batch["start_idx"] if host_seg else None, generator=rng, **kw)
+              start_idx=batch["start_idx"] if host_seg else None, generator=rng, mesh=mesh,
+              **kw)
     if host_seg:
         wav = batch["wav_seg"]
     else:
@@ -56,16 +68,17 @@ def _generator_turn(gen, disc, batch, hop, rng, adversarial: bool, **kw):
         wav = get_segments(batch["wav"][:, None, :], out["start_idx"] * hop,
                            out["segment_size"] * hop)[:, 0, :]
     if adversarial:
-        adv_loss, adv_log = disc.forward_gen(wav, out["wav_hat"])
+        adv_loss, adv_log = disc.forward_gen(wav, out["wav_hat"], mesh)
     else:
         zero = torch.zeros((), device=wav.device)
         adv_loss, adv_log = zero, {k: zero for k in ADV_KEYS}
     return out, wav, adv_loss, adv_log
 
 
-def make_train_step(cfg: ExperimentConfig):
+def make_train_step(cfg: ExperimentConfig, mesh=None):
     """Returns `train_step(state, batch) -> logs`, which updates `state` in
-    place and returns a dict of 0-d tensors."""
+    place and returns a dict of 0-d tensors. With `mesh`, `batch` is this
+    rank's shard of the global batch."""
     cache = cfg.train_args.cache_generator_outputs
     hop = cfg.generator.features.hop_length
     pretraining_steps = cfg.train_args.pretraining_steps
@@ -81,10 +94,12 @@ def make_train_step(cfg: ExperimentConfig):
         # ---- generator update ----------------------------------------------
         rng_before = None if cache else state.rng.get_state()
         out, wav, adv_loss, adv_log = _generator_turn(gen, disc, batch, hop, state.rng,
-                                                      train_disc)
+                                                      train_disc, mesh)
         wav_hat = out["wav_hat"]
         loss = out["loss"] + adv_loss
         g_grads = torch.autograd.grad(loss, state.g_opt.params, allow_unused=True)
+        if mesh is not None:
+            g_grads = all_reduce_grads(g_grads, mesh)
         logs = {
             "total_loss/train_am_loss": out["loss"],
             "total_loss/train_gen_adv_loss": adv_loss,
@@ -105,11 +120,13 @@ def make_train_step(cfg: ExperimentConfig):
                 state.rng.set_state(rng_before)
                 with torch.no_grad():
                     recomputed, wav, _, _ = _generator_turn(gen, disc, batch, hop, state.rng,
-                                                            False)
+                                                            False, mesh)
                 wav_hat = recomputed["wav_hat"]
                 state.rng.set_state(rng_after)
-            d_loss, d_log = disc.forward_disc(wav.detach(), wav_hat.detach())
+            d_loss, d_log = disc.forward_disc(wav.detach(), wav_hat.detach(), mesh)
             d_grads = torch.autograd.grad(d_loss, state.d_opt.params, allow_unused=True)
+            if mesh is not None:
+                d_grads = all_reduce_grads(d_grads, mesh)
             d_gnorm = state.d_opt.update(d_grads)
         else:
             zero = torch.zeros((), device=wav_hat.device)
@@ -123,18 +140,18 @@ def make_train_step(cfg: ExperimentConfig):
     return train_step
 
 
-def make_cached_train_step(cfg: ExperimentConfig, cache, donate: bool = False):
+def make_cached_train_step(cfg: ExperimentConfig, cache, donate: bool = False, mesh=None):
     """Returns `step(state, idx_start, *, t_text, t_mel) -> logs`: the batch
     of `idx_start` ((B, 2) int32 on the cache's device: item indices, then
     segment starts in frames) gathered from `cache` (a
     `DeviceFeatureCache`) at the bucketed lengths (t_text, t_mel), then
     `make_train_step`'s step on it, which updates `state` in place.
     `donate` (JAX's buffer donation) has no meaning here: it is accepted
-    and ignored."""
+    and ignored. With `mesh`, `idx_start` holds this rank's shard."""
     from ..data.device_cache import gather_arenas
 
     del donate
-    base = make_train_step(cfg)
+    base = make_train_step(cfg, mesh)
     segment_size = cfg.generator.segment_size
     hop = cfg.generator.features.hop_length
 
@@ -146,13 +163,13 @@ def make_cached_train_step(cfg: ExperimentConfig, cache, donate: bool = False):
     return step
 
 
-def make_cached_scan_step(cfg: ExperimentConfig, cache, donate: bool = False):
+def make_cached_scan_step(cfg: ExperimentConfig, cache, donate: bool = False, mesh=None):
     """Returns `steps(state, idx_start_k, *, t_text, t_mel) -> logs`: K cached
     train steps over a (K, B, 2) index tensor, one after another (JAX's
     `lax.scan`), every step at the same (t_text, t_mel); each log comes back
     stacked to shape (K,). Equal to K calls of `make_cached_train_step`'s
     step. `donate` is accepted and ignored."""
-    one = make_cached_train_step(cfg, cache)
+    one = make_cached_train_step(cfg, cache, mesh=mesh)
 
     def steps(state: TrainState, idx_start_k: torch.Tensor, *, t_text: int, t_mel: int) -> dict:
         logs = [one(state, idx_start, t_text=t_text, t_mel=t_mel) for idx_start in idx_start_k]
@@ -161,12 +178,14 @@ def make_cached_scan_step(cfg: ExperimentConfig, cache, donate: bool = False):
     return steps
 
 
-def make_val_step(cfg: ExperimentConfig):
+def make_val_step(cfg: ExperimentConfig, mesh=None):
     """Returns `val_step(state, batch, rng) -> (logs, wav, wav_hat)`: the
     validation forward of JAX's `make_val_step`, whose MAS is the duration
     extraction kernel. `rng` (a `torch.Generator` on the state's device)
     draws the segment starts of a batch in the `wav` form; the `wav_seg`
-    form needs none. G and D are left in eval mode."""
+    form needs none. G and D are left in eval mode. With `mesh`, the batch
+    is this rank's shard and the logs are its shares of the global
+    batch's (`parallel.reduce_logs` sums them)."""
     hop = cfg.generator.features.hop_length
 
     @torch.no_grad()
@@ -176,9 +195,9 @@ def make_val_step(cfg: ExperimentConfig):
         disc.eval()
         if "wav_seg" not in batch and rng is None:
             raise ValueError("a batch with the full `wav` needs an `rng` for its segments")
-        out, wav, _, _ = _generator_turn(gen, disc, batch, hop, rng, False,
+        out, wav, _, _ = _generator_turn(gen, disc, batch, hop, rng, False, mesh,
                                          extract_durations=True)
-        val_loss, val_log = disc.forward_val(wav, out["wav_hat"])
+        val_loss, val_log = disc.forward_val(wav, out["wav_hat"], mesh)
         logs = {
             "total_loss/val_am_loss": out["loss"],
             "total_loss/val_gen_adv_loss": val_loss,

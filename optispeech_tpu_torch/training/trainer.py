@@ -6,8 +6,24 @@ over a loader, logs scalars every `log_every_n_steps`, validates every
 and the first val utterances are synthesised in full for the perceptual
 metrics), checkpoints every `ckpt_every_n_steps` and once more when it
 ends, however it ends. A SIGTERM is honoured at the next step boundary.
-Everything runs in one process on one device: the card unless the caller
-asks for the CPU.
+One process runs on one device: the card unless the caller asks for the
+CPU.
+
+Data parallel (`mesh`, `parallel/mesh.py`; `cli/train.py --distributed`):
+one process per device, each with its shard of every global batch. The
+steps sum the gradients over the ranks and make their losses shares of the
+global batch's; the logged values are the global ones (one stacked
+all-reduce where they are fetched, which every rank reaches at the same
+steps). Rank r draws its segment starts from the stream of JAX's process r
+and its step RNG from `seed + r * 7919`. Only rank 0 writes metrics, sinks,
+checkpoints (every rank's RNG state gathered into them), traces and the
+inference checkpoint. Validation runs every rank's shard; the
+full-utterance synthesis and the perceptual metrics run only with one
+rank, as in JAX. A SIGTERM is agreed on at the next logging step (the flag
+rides the logs' all-reduce), so that every rank stops at the same step.
+`fit` checks that every rank ends with the same parameters (a digest of
+each gathered) and ends at a barrier of every rank, which raises when a
+rank never comes.
 
 A train loader with a `cache` (`data/device_cache.py::DeviceCacheLoader`)
 yields light batches of item indices: `fit` then samples the segment starts
@@ -17,7 +33,7 @@ on the host from the same seeded stream as the host path and ships one
 
 Left out of the JAX trainer, each queued in ROADMAP.md: the workarounds for
 a slow host-to-TPU link (the async-dispatch throttle, the host-RSS guard and
-its re-exec, `malloc_trim`) and runs over several processes.
+its re-exec, `malloc_trim`).
 """
 
 import json
@@ -32,6 +48,14 @@ import torch
 from torch.profiler import record_function
 
 from ..config import ExperimentConfig, to_dict
+from ..parallel.mesh import (
+    LAUNCH_HINT,
+    check_replicas,
+    data_size,
+    exit_barrier,
+    reduce_logs,
+    replicate_state,
+)
 from ..utils.device import resolve_device
 from ..utils.pylogger import get_pylogger
 from .checkpoint import (
@@ -40,7 +64,7 @@ from .checkpoint import (
     load_inference_checkpoint,
     save_inference_checkpoint,
 )
-from .state import TrainState, init_train_state
+from .state import RANK_SEED_STRIDE, TrainState, init_train_state
 from .step import make_cached_train_step, make_train_step, make_val_step
 
 log = get_pylogger(__name__)
@@ -62,12 +86,26 @@ def _rss_gb() -> float:
     return 0.0
 
 
-def _fetch_scalars(logs: dict) -> dict:
-    """The 0-d tensors of `logs` as floats, in one device-to-host copy."""
+def _fetch_scalars(logs: dict, mesh=None) -> dict:
+    """The 0-d tensors of `logs` as floats, in one device-to-host copy; with
+    a mesh, their global values (`parallel.reduce_logs`: one all-reduce)."""
     if not logs:
         return {}
+    logs = reduce_logs(logs, mesh)
     values = torch.stack([v.detach().float().reshape(()) for v in logs.values()]).cpu()
     return dict(zip(logs, values.tolist()))
+
+
+class _NoMetrics:
+    """The metric logger of a rank other than 0: it writes nothing."""
+
+    tb = None
+
+    def log(self, step: int, metrics: dict):
+        pass
+
+    def close(self):
+        pass
 
 
 class MetricLogger:
@@ -115,24 +153,38 @@ class MetricLogger:
 
 class Trainer:
     def __init__(self, cfg: ExperimentConfig, out_dir: str = "runs/dev", device=None,
-                 debug_nans: bool = False):
+                 debug_nans: bool = False, mesh=None):
         """`device`: the card by default (raises when there is none), "cpu"
-        when asked. `debug_nans` turns on autograd's anomaly detection."""
-        if cfg.num_devices not in (None, 1):
-            raise NotImplementedError(f"num_devices={cfg.num_devices}: training on several "
-                                      "devices is not ported yet (ROADMAP.md, queue A item 7)")
+        when asked; in a group, this rank's device (`init_distributed`).
+        `debug_nans` turns on autograd's anomaly detection. `mesh`: the
+        data-parallel mesh (`parallel.make_mesh`) of a process group;
+        `num_devices` must then be its size or unset, and without a mesh 1
+        or unset."""
+        world = data_size(mesh)
+        if mesh is None and cfg.num_devices not in (None, 1):
+            launch = LAUNCH_HINT.replace(" N ", f" {cfg.num_devices} ")
+            raise ValueError(f"num_devices={cfg.num_devices} trains one process per device in "
+                             f"a process group: launch `{launch}`")
+        if mesh is not None and cfg.num_devices not in (None, world):
+            raise ValueError(f"num_devices={cfg.num_devices} but the mesh has {world} ranks")
         self.cfg = cfg
         self.out_dir = out_dir
+        self.mesh = mesh
+        self.world = world
+        self.rank = torch.distributed.get_rank() if mesh is not None else 0
+        self.is_main = self.rank == 0
         os.makedirs(out_dir, exist_ok=True)
         self.device = resolve_device(device)
         if debug_nans:
             torch.autograd.set_detect_anomaly(True)
-        self.train_step = make_train_step(cfg)
-        self.val_step = make_val_step(cfg)
-        self.metrics = MetricLogger(out_dir, wandb_project=cfg.wandb_project,
-                                    run_name=cfg.run_name, config=to_dict(cfg),
-                                    sinks=cfg.loggers)
-        self.ckpt = TrainCheckpointManager(os.path.join(out_dir, cfg.ckpt_dir), keep=cfg.ckpt_keep)
+        self.train_step = make_train_step(cfg, mesh)
+        self.val_step = make_val_step(cfg, mesh)
+        self.metrics = (MetricLogger(out_dir, wandb_project=cfg.wandb_project,
+                                     run_name=cfg.run_name, config=to_dict(cfg),
+                                     sinks=cfg.loggers) if self.is_main else _NoMetrics())
+        self.ckpt = TrainCheckpointManager(os.path.join(out_dir, cfg.ckpt_dir), keep=cfg.ckpt_keep,
+                                           rank=self.rank,
+                                           world=self.world if mesh is not None else None)
         self._prev_val_wavs = None  # the last validation's synthesised audio
 
     def init_or_restore_state(self, seed: int = None, forced_resume_from: str = None
@@ -140,9 +192,11 @@ class Trainer:
         """A fresh state from `seed` (default: the config's), then either the
         newest checkpoint of this run, or with `forced_resume_from` only the
         weights of a training checkpoint directory (G and D) or of an
-        inference checkpoint (G), with fresh optimisers and step."""
+        inference checkpoint (G), with fresh optimisers and step. In a
+        group every rank does the same, then takes rank 0's parameters and
+        buffers (`replicate_state`)."""
         state = init_train_state(self.cfg, self.device,
-                                 seed if seed is not None else self.cfg.seed)
+                                 seed if seed is not None else self.cfg.seed, rank=self.rank)
         if forced_resume_from:
             path = os.path.abspath(os.path.expanduser(forced_resume_from))
             if is_train_checkpoint_dir(path):
@@ -159,6 +213,8 @@ class Trainer:
             restored, step = self.ckpt.restore(state)
             if restored is not None:
                 log.info(f"Restored training state from step {step}")
+        if self.mesh is not None:
+            replicate_state(state, self.mesh)
         n_g = sum(p.numel() for p in state.generator.parameters())
         n_d = sum(p.numel() for p in state.discriminator.parameters())
         log.info(f"Generator params: {n_g / 1e6:.2f} M, discriminator params: {n_d / 1e6:.2f} M")
@@ -174,7 +230,8 @@ class Trainer:
         out_dir/profile/trace.json, where the spans `trainer/segment` (host
         segment sampling and slicing) and `trainer/to_device` (the copy to
         the device) mark the loop's host work. A loader with a `cache` runs
-        the cached step (`_cached_train_step`), whose spans are the same."""
+        the cached step (`_cached_train_step`), whose spans are the same.
+        In a group only rank 0 traces."""
         cfg = self.cfg
         max_steps = 1 if fast_dev_run else (max_steps or cfg.max_steps)
         state = state if state is not None else self.init_or_restore_state()
@@ -192,7 +249,7 @@ class Trainer:
             if cache.device.type != self.device.type:
                 raise ValueError(f"the feature cache lies on {cache.device}, the trainer "
                                  f"trains on {self.device}")
-            self._cached_step = make_cached_train_step(cfg, cache)
+            self._cached_step = make_cached_train_step(cfg, cache, mesh=self.mesh)
 
         # SIGTERM sets a flag that is read at the step boundary, so the
         # final save never sees a step half applied
@@ -208,7 +265,7 @@ class Trainer:
                 saw_batch = False
                 for batch in train_loader:
                     saw_batch = True
-                    if profile_steps and step == profile_steps[0]:
+                    if profile_steps and self.is_main and step == profile_steps[0]:
                         profiler = self._start_profile()
                     if "idx" in batch:
                         logs = self._cached_train_step(state, batch, step)
@@ -222,22 +279,30 @@ class Trainer:
                         profiler = self._stop_profile(profiler)
                     step += 1
                     steps_since += 1
+                    stop = preempted.is_set() and self.mesh is None
                     if step % cfg.log_every_n_steps == 0 or fast_dev_run:
-                        logs = _fetch_scalars(logs)
+                        if self.mesh is not None:
+                            # every rank stops at the same step: the flag is
+                            # summed over the ranks with the logs
+                            logs = {**logs, "preempted": torch.tensor(
+                                float(preempted.is_set()), device=self.device)}
+                        logs = _fetch_scalars(logs, self.mesh)
+                        stop = logs.pop("preempted", 0.0) > 0 or stop
                         dt = time.perf_counter() - t_last
                         logs["perf/steps_per_sec"] = steps_since / max(dt, 1e-9)
                         logs["perf/host_rss_gb"] = _rss_gb()
                         t_last, steps_since = time.perf_counter(), 0
                         self.metrics.log(step, logs)
-                        log.info(f"step {step}: g={logs['total_loss/generator']:.4f} "
-                                 f"d={logs['total_loss/discriminator']:.4f} "
-                                 f"({logs['perf/steps_per_sec']:.2f} it/s)")
+                        if self.is_main:
+                            log.info(f"step {step}: g={logs['total_loss/generator']:.4f} "
+                                     f"d={logs['total_loss/discriminator']:.4f} "
+                                     f"({logs['perf/steps_per_sec']:.2f} it/s)")
                     if val_loader is not None and step % cfg.val_every_n_steps == 0:
                         self.validate(state, val_loader, step)
                     if step % cfg.ckpt_every_n_steps == 0 or fast_dev_run:
                         self.ckpt.save(step, state, cfg, self._loader_state(train_loader))
                         saved_step = step
-                    if preempted.is_set():
+                    if stop:
                         raise KeyboardInterrupt("SIGTERM (preemption)")
                     if step >= max_steps:
                         break
@@ -250,6 +315,9 @@ class Trainer:
                     if empty_passes > 1:
                         raise RuntimeError("train_loader yielded no batches twice in a row "
                                            "(dataset smaller than the batch size with drop_last?)")
+            if self.mesh is not None:
+                log.info(f"rank {self.rank}: parameter digest {check_replicas(state)} at step "
+                         f"{step}, the same on every rank")
         except KeyboardInterrupt:
             log.info("Interrupted/preempted — saving checkpoint before exit")
         finally:
@@ -263,6 +331,10 @@ class Trainer:
             except Exception:
                 log.exception("final checkpoint failed; the last periodic checkpoint stands")
             self.metrics.close()
+            if self.mesh is not None:
+                # the ranks leave together, once rank 0's checkpoint is
+                # durable; a rank that never comes raises at the group's timeout
+                exit_barrier()
         return state
 
     @torch.no_grad()
@@ -273,13 +345,16 @@ class Trainer:
         `val/synth_wav_delta` against the previous validation's audio, and
         the pass's wall time in seconds: `perf/val_seconds` in all, of which
         `perf/val_synth_seconds` synthesis and `perf/val_metrics_seconds`
-        the perceptual metrics."""
+        the perceptual metrics. In a group every rank validates its shard
+        and the losses are the global batch's; synthesis and the perceptual
+        metrics need one rank."""
         t_start = time.perf_counter()
         agg: dict = {}
         n = 0
         ta = self.cfg.train_args
-        want_synth = (ta.evaluate_periodicity or ta.evaluate_pesq or ta.evaluate_mcd
-                      or ta.evaluate_utmos or ta.evaluate_stoi or self.metrics.tb is not None)
+        want_synth = self.world == 1 and (
+            ta.evaluate_periodicity or ta.evaluate_pesq or ta.evaluate_mcd
+            or ta.evaluate_utmos or ta.evaluate_stoi or self.metrics.tb is not None)
         synth_batches: list = []
         n_collected = 0
         for batch in val_loader:
@@ -289,7 +364,7 @@ class Trainer:
                 n_collected += host["x"].shape[0]
             logs, _wav, _wav_hat = self.val_step(
                 state, self._to_device(self._segment_batch(host, step * 131 + n)))
-            for k, v in _fetch_scalars(logs).items():
+            for k, v in _fetch_scalars(logs, self.mesh).items():
                 agg[k] = agg.get(k, 0.0) + v
             n += 1
         if not n:
@@ -319,7 +394,8 @@ class Trainer:
         self.metrics.log(step, out)
         if wav_pairs:
             self._log_samples(step, wav_pairs)
-        log.info(f"val @ {step}: total={out['total_loss/val_total']:.4f}")
+        if self.is_main:
+            log.info(f"val @ {step}: total={out['total_loss/val_total']:.4f}")
         return out
 
     def _perceptual_metrics(self, wav_pairs) -> dict:
@@ -404,7 +480,10 @@ class Trainer:
                                       np.ascontiguousarray(img[None, ::-1, :]), step)
 
     def export_inference_checkpoint(self, state: TrainState, path: str):
-        save_inference_checkpoint(path, self.cfg, state.generator.state_dict())
+        """G's weights as an inference checkpoint at `path` (rank 0 alone
+        writes in a group)."""
+        if self.is_main:
+            save_inference_checkpoint(path, self.cfg, state.generator.state_dict())
 
     def _start_profile(self):
         activities = [torch.profiler.ProfilerActivity.CPU]
@@ -435,13 +514,14 @@ class Trainer:
 
     def _segment_starts(self, mel_lengths, t_mel: int, step: int):
         """The GAN segment starts of a batch padded to `t_mel` frames, drawn on
-        the host from a stream seeded by (config seed, step) as JAX seeds
-        process 0, so a resumed run draws the same starts. Returns (segment
-        frames, (B,) int32 starts)."""
+        the host from a stream seeded by (config seed, rank, step) as JAX
+        seeds its process of that index, so a resumed run draws the same
+        starts. Returns (segment frames, (B,) int32 starts)."""
         from ..ops.segments import host_sample_segment_starts
 
         seg = min(self.cfg.generator.segment_size, t_mel)
-        rng = np.random.default_rng((self.cfg.seed * 1_000_003 + step) & 0x7FFFFFFF)
+        rng = np.random.default_rng(
+            (self.cfg.seed * 1_000_003 + self.rank * RANK_SEED_STRIDE + step) & 0x7FFFFFFF)
         return seg, host_sample_segment_starts(rng, mel_lengths, seg)
 
     def _cached_train_step(self, state: TrainState, light: dict, step: int) -> dict:

@@ -56,6 +56,10 @@ EXPORT_MODULES = [f"optispeech_tpu_torch.{m}" for m in (
 RUN_TOOL_MODULES = [f"optispeech_tpu_torch.{m}" for m in (
     "data.packed", "data.device_cache", "cli.pack", "training.average", "cli.average",
     "cli.sweep", "cli.models", "cli.demo", "cli.gradio_ui")]
+# data and tensor parallelism
+PARALLEL_MODULES = [f"optispeech_tpu_torch.{m}" for m in (
+    "parallel", "parallel.mesh", "parallel.tp", "cli.train", "training.trainer",
+    "training.checkpoint", "data.datamodule")]
 
 # without pyyaml the CLI imports and trains a config built in code; only
 # reading a YAML file needs it
@@ -81,7 +85,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     first, imported = proc.stdout.splitlines()[:2]
     assert int(first.split()[0]) >= 35  # every module of the package was imported
     assert set(TRAINING_MODULES + INT8_MODULES + WORKFLOW_MODULES
-               + SERVING_MODULES + EXPORT_MODULES + RUN_TOOL_MODULES) <= set(imported.split())
+               + SERVING_MODULES + EXPORT_MODULES + RUN_TOOL_MODULES
+               + PARALLEL_MODULES) <= set(imported.split())
 
 
 def test_training_cli_imports_without_yaml():

@@ -48,8 +48,8 @@ def test_pak_bytes_equal_jax(tmp_path, speakers):
 
 @pytest.mark.parametrize("override", [False, True])
 def test_assemble_equals_bucketed_collate(data, override):
-    """Every array bit for bit against JAX's collate and, without the
-    padded-length override (which the port's collate lacks), the port's."""
+    """Every array bit for bit against JAX's collate and the port's, with
+    and without the padded-length override."""
     _, filelist, pak = data
     stats = statistics(torch_config.DataStatistics)
     ds = PackedDataset(pak, stats, f_min=80.0)
@@ -62,10 +62,9 @@ def test_assemble_equals_bucketed_collate(data, override):
     jax_collate = jax_dm.BucketedCollate(N_FEATS, statistics(jax_config.DataStatistics), HOP,
                                          text_bucket=16, mel_bucket=32)
     _assert_same(got, jax_collate([jax_ds[i] for i in idx], **pad))
-    if not override:
-        ds_t = torch_dm.TextWavDataset(str(filelist), f_min=80.0)
-        collate = torch_dm.BucketedCollate(N_FEATS, stats, HOP, text_bucket=16, mel_bucket=32)
-        _assert_same(got, collate([ds_t[i] for i in idx]))
+    ds_t = torch_dm.TextWavDataset(str(filelist), f_min=80.0)
+    collate = torch_dm.BucketedCollate(N_FEATS, stats, HOP, text_bucket=16, mel_bucket=32)
+    _assert_same(got, collate([ds_t[i] for i in idx], **pad))
     assert got["sids"] is None and got["lids"] is None
 
 

@@ -87,6 +87,28 @@ def test_best_of_with_constraints_equals_jax(tmp_path):
     assert sweep.best_of(rows, "min", [{"metric": "val/f1_score", "value": 0.95}]) is None
 
 
+@pytest.mark.parametrize("constraint,match", [
+    ({"metric": "val/f1_score", "op": "=>", "value": 0.3}, "op must be one of"),
+    ({"op": ">=", "value": 0.3}, "needs a `metric`"),
+    ({"metric": "val/f1_score", "op": ">="}, "numeric `value`"),
+    ({"metric": "val/f1_score", "value": "high"}, "numeric `value`")])
+def test_bad_constraint_exits_before_any_trial(tmp_path, constraint, match):
+    """A constraint with a bad op, or without a metric or a numeric value,
+    stops the sweep when its spec is read: no trial directory, no results
+    file, no trial subprocess."""
+    spec = {"base_config": "default", "trials": 2, "seed": 0,
+            "space": {"optimizer.lr": {"log_uniform": [1e-5, 1e-3]}},
+            "constraints": [{"metric": "val/mcd", "op": "<=", "value": 9}, constraint]}
+    spec_path = tmp_path / "spec.yaml"
+    spec_path.write_text(yaml.safe_dump(spec))
+    out = tmp_path / "out"
+    with pytest.raises(SystemExit, match=match):
+        sweep.main([str(spec_path), "--out-dir", str(out)])
+    assert not out.exists() or not any(out.iterdir())
+    assert sweep.check_constraints(spec["constraints"][:1]) == spec["constraints"][:1]
+    assert sweep.check_constraints(None) == []
+
+
 def test_resume_runs_no_recorded_trial(tmp_path, capsys):
     """Every trial recorded: --resume launches nothing and reports JAX's best."""
     spec = {"base_config": "default", "trials": 2, "seed": 0,

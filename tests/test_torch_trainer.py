@@ -273,9 +273,13 @@ def test_trainer_fits_validates_and_resumes_in_bfloat16(tmp_path):
 
 
 def test_unported_options_raise(tmp_path, monkeypatch):
+    """num_devices=2 without a process group raises, naming the launcher's
+    command line (one process per device); without a card and without
+    device="cpu" the trainer raises."""
     cfg = tiny_config()
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
+    with pytest.raises(ValueError, match="torch.distributed.run --standalone --nproc_per_node 2"):
         trainer(tiny_config(num_devices=2), tmp_path)
+    assert not (tmp_path / "metrics.jsonl").exists()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(cfg, out_dir=str(tmp_path))
@@ -353,15 +357,25 @@ def test_cli_debug_harnesses(tmp_path):
 @pytest.mark.parametrize("flag,error,match", [
     (["--packed-train", "x.pak"], OSError, "x.pak"),
     (["--device-cache"], SystemExit, "2"),
-    (["--distributed"], NotImplementedError, "ROADMAP.md, queue A item 7")])
-def test_cli_flags_not_ported_raise(flag, error, match, capsys):
-    """Only --distributed is still not ported; --packed-train on a file that
-    is not there raises (no fallback to another loader), and --device-cache
-    without --packed-train is a usage error, as in JAX."""
-    from optispeech_tpu_torch.cli.train import NOT_PORTED, main
+    (["--distributed"], RuntimeError, "RANK")])
+def test_cli_flags_not_ported_raise(flag, error, match, capsys, tmp_path, monkeypatch):
+    """Every flag of the JAX CLI is ported, none falls back: --packed-train
+    on a file that is not there raises (no other loader), --device-cache
+    without --packed-train is a usage error, as in JAX, and --distributed
+    without the launcher's environment (RANK, WORLD_SIZE, ...) raises,
+    naming the launcher, and starts no single-process run."""
+    from optispeech_tpu_torch.cli import train as cli
+    from optispeech_tpu_torch.parallel.mesh import LAUNCH_ENV
 
-    assert set(NOT_PORTED) == {"distributed"}
-    with pytest.raises(error, match=match):
-        main(["--synthetic", "--device", "cpu", "--no-print-config", *flag])
+    assert not hasattr(cli, "NOT_PORTED")
+    for name in LAUNCH_ENV:
+        monkeypatch.delenv(name, raising=False)
+    out = tmp_path / "out"
+    with pytest.raises(error, match=match) as raised:
+        cli.main(["--synthetic", "--device", "cpu", "--no-print-config", "--out-dir", str(out),
+                  *flag])
     if error is SystemExit:
         assert "--device-cache requires --packed-train" in capsys.readouterr().err
+    if flag == ["--distributed"]:
+        assert "torch.distributed.run" in str(raised.value)
+        assert not torch.distributed.is_initialized() and not out.exists()
