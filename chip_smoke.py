@@ -228,7 +228,31 @@ Phases, each of which fails the run on any error:
      included) within STEP_LOG_RTOL of the one process's, both ranks'
      parameters after the step equal bit for bit, B3 once per rank, the
      peak memory per rank, and the reducer's ms and MiB per turn (gloo, not
-     NCCL).
+     NCCL);
+ 21. the configurations not run before, in a temporary directory outside
+     the checkout that is deleted after: (a) configs/ljspeech-48k.yaml and
+     ljspeech-22k.yaml at the flagship's widths with each file's features
+     (en-g2p, seeded weights, fused): synthesise_on_device at bench shape
+     (median of 5 calls, B1 12 times per decode), the WaveNeXt head's device
+     time alone beside the flagship head's, and the same model on the card
+     and on the CPU on the bench inputs' first CONFIG_ROWS rows (durations
+     equal, wav within WAV_ATOL); at 48 kHz phase 7's batch (1 warm-up and 3
+     timed steps, B3 once per step, the peak per turn) and a step
+     and a validation at phase 8's size card against CPU (every log within
+     STEP_LOG_RTOL, B3 and B4 once each); at 22.05 kHz that step alone; (b)
+     `cli/preprocess.py` and `cli/stats.py` at 48 kHz on RATE_CORPUS
+     utterances written at 48 kHz and at configs/kareem.yaml on Arabic rows
+     over synthcorpus wavs, the seconds of each, then kareem's synthesis of
+     an Arabic sentence at the flagship's widths (B1 12 times); (c)
+     scripts/port_campaign.py at configs/campaign-ms.yaml on the card:
+     CAMPAIGN_UTTERANCES utterances (a train split above one batch of 128),
+     CAMPAIGN_STEPS steps with D from step 1 and one validation (the export at
+     CAMPAIGN_LADDERS, smaller than campaign.py's), the training
+     stage traced by torch.profiler (B3 once per step, B4 once per val
+     batch, counted by name), the speaker check (B1 12 times per synthesise
+     call, read from its output), the average, the export, and the artifact
+     served to each of the 4 speakers and /stream; each stage's seconds; the
+     quality verdict printed as data.
 The kernels build in parallel (one nvcc per source, five sources and the
 probe), and the host collator beside them.
 Prints the kernels' JSON line and the card line, and as its last line
@@ -2560,13 +2584,34 @@ def other_synthesis(fc, mas, name, cfg):
 
 def other_training(mas, name, cfg):
     """(b) Returns the step ms, the peak GiB and the B3 / B4 launches."""
+    walls, peak, b3, _ = phase7_steps(mas, name, cfg)
+    b3_step, b4 = step_card_against_cpu(mas, name, cfg)
+    return statistics.median(walls[1:]), peak, b3 + b3_step, b4
+
+
+def phase7_steps(mas, name, cfg, label="(b)"):
+    """Phase 7's batch on `cfg`: 1 warm-up and 3 timed steps from a seeded
+    state; returns their walls, the peak GiB, B3's launches and the peak
+    GiB of each turn (G's forward and backward, up to its update; D's, from
+    G's update to its own)."""
     from optispeech_tpu_torch.training.state import init_train_state
-    from optispeech_tpu_torch.training.step import make_train_step, make_val_step
+    from optispeech_tpu_torch.training.step import make_train_step
 
     state = init_train_state(cfg, "cuda", seed=0)
     t_text, t_mel = MAS_SHAPE[2], MAS_SHAPE[1]
-    batch = training_batch(cfg, cfg.data.batch_size, t_text, t_mel, "cuda")
+    rows = cfg.data.batch_size
+    batch = training_batch(cfg, rows, t_text, t_mel, "cuda")
     step = make_train_step(cfg)
+    turns = {"generator": 0.0, "discriminator": 0.0}
+    for turn, opt in (("generator", state.g_opt), ("discriminator", state.d_opt)):
+        update = opt.update
+
+        def peak_then_update(grads, update=update, turn=turn):
+            turns[turn] = max(turns[turn], torch.cuda.max_memory_allocated() / 2 ** 30)
+            torch.cuda.reset_peak_memory_stats()
+            return update(grads)
+
+        opt.update = peak_then_update
     torch.cuda.reset_peak_memory_stats()
     mas.viterbi_decode.launches = 0
     walls = []
@@ -2578,55 +2623,68 @@ def other_training(mas, name, cfg):
         bad = [k for k, v in logs.items() if not bool(torch.isfinite(v))]
         assert not bad, f"{name} step {i}: non-finite logs {bad}"
     b3 = mas.viterbi_decode.launches
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak = max(torch.cuda.max_memory_allocated() / 2 ** 30, *turns.values())
     assert b3 == 4, f"{name}: expected one B3 launch per step, got {b3} in 4"
     del state, batch
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"  (b) {name}: batch {cfg.data.batch_size}, {t_text} tokens, {t_mel} frames: steps "
+    print(f"  {label} {name}: batch {rows}, {t_text} tokens, {t_mel} frames: steps "
           f"{', '.join(f'{w:.1f}' for w in walls)} ms (the first a warm-up), peak memory "
           f"{peak:.2f} GiB; B3 {b3} in 4 steps", flush=True)
+    return walls, peak, b3, turns
+
+
+def step_card_against_cpu(mas, name, cfg, validation=True):
+    """A step (and a validation) with no dropout at phase 8's size on the
+    card and on the CPU from one state: durations equal, every log
+    within STEP_LOG_RTOL; returns B3's launches in the card's step and B4's
+    in its validation (None without one)."""
+    from optispeech_tpu_torch.training.state import init_train_state
+    from optispeech_tpu_torch.training.step import make_train_step, make_val_step
 
     quiet = without_dropout(cfg)
-    states = {dev: init_train_state(quiet, dev, seed=0) for dev in ("cuda", "cpu")}
+    places = {"card": "cuda", "cpu": "cpu"}
+    states = {tag: init_train_state(quiet, dev, seed=0) for tag, dev in places.items()}
     for part in ("generator", "discriminator"):
-        sd = getattr(states["cuda"], part).state_dict()
+        sd = getattr(states["card"], part).state_dict()
         getattr(states["cpu"], part).load_state_dict({k: v.cpu() for k, v in sd.items()})
-    batches = {dev: training_batch(quiet, 4, 32, 128, dev, seed=1) for dev in states}
+    batches = {tag: training_batch(quiet, 4, 32, 128, dev, seed=1) for tag, dev in places.items()}
     keys = ("x", "x_lengths", "mel", "mel_lengths", "pitches", "energies")
     durations, logs, val_logs = {}, {}, {}
     mas.viterbi_decode.launches = mas.viterbi_decode_extract.launches = 0
+    b3_step = b4 = None
     t0 = time.perf_counter()
-    for dev, st in states.items():
-        b = batches[dev]
+    for tag, st in states.items():
+        b = batches[tag]
         st.generator.eval()
         with torch.no_grad():
-            durations[dev] = st.generator(*[b[k] for k in keys],
+            durations[tag] = st.generator(*[b[k] for k in keys],
                                           start_idx=b["start_idx"])["durations"].cpu()
-        if dev == "cuda":
-            launches_before = mas.viterbi_decode.launches
-        logs[dev] = make_train_step(quiet)(st, b)
-        if dev == "cuda":
-            b3_step = mas.viterbi_decode.launches - launches_before
-        val_logs[dev] = make_val_step(quiet)(st, b)[0]
-        if dev == "cuda":
-            b4 = mas.viterbi_decode_extract.launches
+        before = mas.viterbi_decode.launches
+        logs[tag] = make_train_step(quiet)(st, b)
+        if tag == "card":
+            b3_step = mas.viterbi_decode.launches - before
+        if validation:
+            val_logs[tag] = make_val_step(quiet)(st, b)[0]
+            if tag == "card":
+                b4 = mas.viterbi_decode_extract.launches
     cross_s = time.perf_counter() - t0
-    dur_equal = torch.equal(durations["cuda"], durations["cpu"])
+    dur_equal = torch.equal(durations["card"], durations["cpu"])
     gaps = {}
-    for tag, pair in (("train", logs), ("val", val_logs)):
-        for k in pair["cpu"]:
+    for kind, pair in (("train", logs), ("val", val_logs)):
+        for k in pair.get("cpu", {}):
             ref = float(pair["cpu"][k])
-            gaps[f"{tag} {k}"] = abs(float(pair["cuda"][k]) - ref) / max(abs(ref), 1e-12)
+            gaps[f"{kind} {k}"] = abs(float(pair["card"][k]) - ref) / max(abs(ref), 1e-12)
     worst = max(gaps, key=gaps.get)
     print(f"      card against CPU, batch 4, 32 tokens, 128 frames, no dropout: durations equal "
           f"{dur_equal}; largest relative log gap {gaps[worst]:.2e} ({worst}; rtol "
-          f"{STEP_LOG_RTOL}); B3 {b3_step} in the step, B4 {b4} in the validation "
-          f"({cross_s:.1f} s)", flush=True)
+          f"{STEP_LOG_RTOL}); B3 {b3_step} in the step"
+          + (f", B4 {b4} in the validation" if validation else "") + f" ({cross_s:.1f} s)",
+          flush=True)
     assert dur_equal, f"{name}: MAS durations differ between card and CPU"
     assert gaps[worst] <= STEP_LOG_RTOL, f"{name}: {worst} differs by {gaps[worst]}"
-    assert b3_step == 1 and b4 == 1, f"{name}: B3 {b3_step} / B4 {b4} on the card"
-    return statistics.median(walls[1:]), peak, b3 + b3_step, b4
+    assert b3_step == 1 and b4 in (None, 1), f"{name}: B3 {b3_step} / B4 {b4} on the card"
+    return b3_step, b4
 
 
 def other_cli(fc, api):
@@ -3308,6 +3366,258 @@ def parallel_path(root, handed):
     return out
 
 
+# phase 21: the configurations the port had not run: the 48 kHz and 22.05 kHz
+# feature blocks, preprocessing at 48 kHz and at kareem.yaml's Arabic front
+# end, and the campaign (scripts/port_campaign.py) at campaign-ms.yaml
+RATE_CONFIGS = ("ljspeech-48k", "ljspeech-22k")
+CONFIG_ROWS = 4  # (a): card against CPU on the bench inputs' first rows
+RATE_CORPUS = 16  # (b): synthcorpus utterances written at 48 kHz
+ARABIC_SENTENCES = (  # (b): kareem's rows, in Arabic script and in Buckwalter
+    "السَّلامُ عَلَيكُم", "كِتابٌ جَديدٌ عَلى الطّاوِلَةِ.", "مَرحَباً بِالعالَمِ، كَيفَ حالُك؟",
+    "ذَهَبَ الوَلَدُ إِلى المَدرَسَةِ صَباحاً", "مرحبا بكم في المدينة", "Alsa~alAmu Ealaykum",
+    "*ahaba Alwaladu <ilaY Almadrasapi SabAHAF.", "qara>a Altilmy*u Alkitaba")
+# (c): a train split of 132 at the campaign's val fraction (0.03): one batch of 128
+CAMPAIGN_UTTERANCES, CAMPAIGN_STEPS = 136, 3
+CAMPAIGN_OVERRIDES = ["train_args.pretraining_steps=1", f"val_every_n_steps={CAMPAIGN_STEPS}",
+                      "log_every_n_steps=1"]
+# the export stage's ladders, in place of campaign.py's 32,64 x 1,2,4,8 (the
+# script's time limit); the serve check's sentences take at most 38 tokens
+CAMPAIGN_LADDERS = {"--text-buckets": "64", "--batch-sizes": "1,4"}
+
+
+def named_config(name, *overrides):
+    """configs/<name>.yaml as the user loads it, D trained from the first
+    step; the English files with the en-g2p front end."""
+    from optispeech_tpu_torch.utils.yamlcfg import load_experiment
+
+    front = [] if name == "kareem" else WORKFLOW_CONFIG
+    return load_experiment(name, [*front, "train_args.pretraining_steps=0", *overrides])
+
+
+def head_ms(head):
+    """Device ms of the WaveNeXt head alone on bench-shape frame features."""
+    x = torch.randn(BENCH["batch"], BENCH["n_frames"], head.linear_1.in_features,
+                    device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    with torch.no_grad():
+        return time_ms(lambda: head(x), iters=5)
+
+
+def rate_synthesis(fc, mas, name, cfg):
+    """(a) bench-shape synthesis of `cfg` on the card, then card against CPU
+    on the first CONFIG_ROWS rows; returns its figures."""
+    from optispeech_tpu_torch.models.optispeech import OptiSpeech, with_fused_blocks
+
+    api = OptiSpeech(with_fused_blocks(cfg), seed=0, device="cuda")
+    g, f = api.cfg.generator, api.cfg.generator.features
+    assert g.decoder.fused_pallas and g.vocoder.fused_pallas
+    inputs, n_frames = bench_inputs(), BENCH["n_frames"]
+    fc.convnext_block_fused.launches = 0
+    mas.viterbi_decode.launches = mas.viterbi_decode_extract.launches = 0
+    o = api.synthesise_on_device(inputs, n_frames, pcm16=True)  # warm-up
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        o = api.synthesise_on_device(inputs, n_frames, pcm16=True)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    launches = fc.convnext_block_fused.launches
+    assert launches == 12 * 6, f"{name}: expected 12 B1 launches per decode, got {launches} in 6"
+    assert mas.viterbi_decode.launches == mas.viterbi_decode_extract.launches == 0
+    assert o["wav"].shape == (BENCH["batch"], n_frames * f.hop_length)
+    assert bool(torch.isfinite(o["wav"]).all()), f"{name}: non-finite samples"
+    ms, head = statistics.median(walls), head_ms(api.generator.vocoder.head)
+    audio_s = float(o["wav_lengths"].sum()) / f.sample_rate
+    print(f"  (a) {name}: {f.sample_rate} Hz, hop {f.hop_length}, n_fft {f.n_fft}, {f.n_feats} "
+          f"mels to {f.f_max:g} Hz; synthesise_on_device at bench shape: median {ms:.2f} ms over "
+          f"5 calls (min {min(walls):.2f}), {audio_s:.2f} s of audio ({audio_s / (ms / 1e3):.1f}x "
+          f"real time); B1 {launches // 6} per decode; the WaveNeXt head ({g.vocoder.dim} -> "
+          f"{f.n_fft + 2} -> {f.hop_length}) alone {head:.3f} ms of device time", flush=True)
+
+    cpu_api = OptiSpeech(api.cfg, device="cpu",
+                         state_dict={k: v.cpu() for k, v in api.generator.state_dict().items()})
+    rows = bench_inputs(CONFIG_ROWS)
+    gpu, cpu = api.synthesise_on_device(rows, n_frames), cpu_api.synthesise_on_device(rows,
+                                                                                     n_frames)
+    dur_equal = torch.equal(gpu["durations"].cpu(), cpu["durations"])
+    wav_diff = float((gpu["wav"].cpu() - cpu["wav"]).abs().max())
+    print(f"      card against CPU, {CONFIG_ROWS} rows at {n_frames} frames: durations equal "
+          f"{dur_equal}; wav max|card - cpu| {wav_diff:.3e} (atol {WAV_ATOL})", flush=True)
+    assert dur_equal, f"{name}: durations differ between card and CPU"
+    assert wav_diff <= WAV_ATOL, f"{name}: wav differs between card and CPU by {wav_diff}"
+    return dict(bench_ms=ms, b1_launches_per_decode=launches // 6, head_ms=head,
+                head_share=head / ms, audio_s=audio_s)
+
+
+def rate_training(mas, name, cfg):
+    """(a) phase 7's batch on `cfg`; returns the step figures, the peak per
+    turn and B3's launches."""
+    walls, peak, b3, turns = phase7_steps(mas, name, cfg, label="(a)")
+    print(f"      {name}: median of the 3 after the warm-up {statistics.median(walls[1:]):.1f} "
+          f"ms a step; peak per turn: G {turns['generator']:.2f} GiB, D "
+          f"{turns['discriminator']:.2f} GiB", flush=True)
+    return dict(step_ms=statistics.median(walls[1:]), steps_ms=walls, peak_gib=peak,
+                turn_peak_gib=turns, b3_launches=b3)
+
+
+def config_preprocessing(fc, root):
+    """(b) cli/preprocess.py and cli/stats.py at 48 kHz on RATE_CORPUS
+    utterances written at 48 kHz, and at kareem.yaml on ARABIC_SENTENCES
+    over synthcorpus wavs; then kareem's synthesis on the card (B1 12 times
+    per decode). Returns the seconds of each and B1's launches."""
+    from optispeech_tpu_torch.cli import preprocess, stats
+    from optispeech_tpu_torch.data.synthcorpus import generate_corpus
+    from optispeech_tpu_torch.models.optispeech import OptiSpeech, with_fused_blocks
+
+    out = {}
+    for name, corpus_kw, flags in (
+            ("ljspeech-48k", dict(n_utterances=RATE_CORPUS, sr=48000, frontend="en-g2p"),
+             ["--tokenizer", "en-g2p", "--workers", "4"]),
+            ("kareem", dict(n_utterances=len(ARABIC_SENTENCES), frontend="char"),
+             ["--workers", "1"])):
+        corpus, data = root / f"corpus-{name}", root / f"data-{name}"
+        t0 = time.perf_counter()
+        generate_corpus(str(corpus), seed=0, **corpus_kw)
+        if name == "kareem":  # the same wavs under Arabic text, one speaker
+            ids = [r.split("|")[0] for r in (corpus / "metadata.csv").read_text().splitlines()]
+            (corpus / "metadata.csv").write_text(
+                "".join(f"{i}|{t}\n" for i, t in zip(ids, ARABIC_SENTENCES)), encoding="utf-8")
+        t1 = time.perf_counter()
+        train, val = preprocess.main([str(corpus), str(data), "--config", name, *flags,
+                                      "--val-fraction", "0.125"])
+        t2 = time.perf_counter()
+        stats_ = stats.main(["--config", name, "-o", str(data / "stats.json"),
+                             f"data.train_filelist_path={data / 'train.txt'}"])
+        t3 = time.perf_counter()
+        n = len(train) + len(val)
+        feats = named_config(name).generator.features
+        with np.load(Path(train[0]).with_suffix(".npz")) as z:
+            assert z["mel"].shape[0] == feats.n_feats and len(z["pitch"]) == z["mel"].shape[1]
+        assert n == corpus_kw["n_utterances"] and all(np.isfinite(v) for v in stats_.values())
+        print(f"  (b) {name} ({feats.sample_rate} Hz): corpus {t1 - t0:.2f} s; cli/preprocess.py "
+              f"{n} utterances in {t2 - t1:.2f} s ({1e3 * (t2 - t1) / n:.1f} ms per utterance, "
+              f"{' '.join(flags[-2:])}); cli/stats.py {t3 - t2:.2f} s; mel_mean "
+              f"{stats_['mel_mean']:.4f}"
+              f", pitch_mean {stats_['pitch_mean']:.2f}", flush=True)
+        out[name] = dict(corpus_s=t1 - t0, preprocess_s=t2 - t1, stats_s=t3 - t2, utterances=n)
+
+    api = OptiSpeech(with_fused_blocks(named_config("kareem")), seed=0, device="cuda")
+    fc.convnext_block_fused.launches = 0
+    res = api.synthesise(api.prepare_input(ARABIC_SENTENCES[3]))  # split: one sentence
+    launches = fc.convnext_block_fused.launches
+    assert np.isfinite(res.wav).all() and res.wav.shape[0] == 1
+    assert launches == 12, f"kareem: expected 12 B1 launches per decode, got {launches}"
+    print(f"      kareem, flagship widths: synthesise on an Arabic sentence, "
+          f"{int(res.durations.sum())} frames, latency {res.latency:.2f} ms; B1 {launches}",
+          flush=True)
+    out["kareem"]["b1_launches"] = launches
+    return out
+
+
+def campaign_path(root):
+    """(c) scripts/port_campaign.py at campaign-ms.yaml on the card, its
+    training stage traced (`--profile-steps`), in `root`; returns the
+    verdict, the stage seconds and the kernels' launches read from the
+    stages' outputs."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "port_campaign", Path(__file__).resolve().parent / "scripts" / "port_campaign.py")
+    port_campaign = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(port_campaign)
+    run = port_campaign.run
+
+    def traced(cmd, *args, **kwargs):
+        cmd = [str(c) for c in cmd]
+        if "optispeech_tpu_torch.cli.train" in cmd:  # the steps and the validation in a trace
+            cmd = [*cmd[:3], "--profile-steps", f"0,{CAMPAIGN_STEPS}", *cmd[3:]]
+        if "optispeech_tpu_torch.cli.export" in cmd:  # the artifact at CAMPAIGN_LADDERS
+            for flag, value in CAMPAIGN_LADDERS.items():
+                cmd[cmd.index(flag) + 1] = value
+        return run(cmd, *args, **kwargs)
+
+    port_campaign.run = traced
+    work = root / "work"
+    info = port_campaign.main([
+        "--work-dir", str(work), "--n-utterances", str(CAMPAIGN_UTTERANCES),
+        "--max-steps", str(CAMPAIGN_STEPS), "--disc-on-step", "1", "--device", "cuda",
+        *CAMPAIGN_OVERRIDES])
+    n_val = len((work / "pre" / "val.txt").read_text().splitlines())
+    n_train = len((work / "pre" / "train.txt").read_text().splitlines())
+    trace = work / "run" / "profile" / "trace.json"
+    b3, b4 = b3_in_trace(trace), b3_in_trace(trace, B4_KERNEL)
+    speakers = json.loads((work / "speaker_f0.json").read_text())
+    kernels = speakers.pop("_kernels")
+    served = json.loads((work / "serve_check.json").read_text())
+    names = json.loads((work / "corpus" / "manifest.json").read_text())["speakers"]
+    print(f"  (c) scripts/port_campaign.py: {n_train} train / {n_val} val utterances, "
+          f"{CAMPAIGN_STEPS} steps of batch 128; stage seconds "
+          + ", ".join(f"{k} {v:.1f}" for k, v in info["stage_seconds"].items())
+          + f"; the artifact at {CAMPAIGN_LADDERS}; in the training stage's trace B3 {b3}, "
+          f"B4 {b4}; the speaker check's "
+          f"{kernels['synthesise_calls']} synthesise calls on {kernels['device']}: B1 "
+          f"{kernels['b1_launches']}", flush=True)
+    for name in names:
+        print(f"      {name}: assigned F0 {speakers[name]['assigned_f0']}, tracked "
+              f"{speakers[name]['tracked_median_f0']:.1f} Hz, predicted "
+              f"{speakers[name]['predicted_median_f0']:.1f} Hz; served "
+              f"{served[name]['audio_seconds']:.3f} s in {served[name]['wall_ms']:.1f} ms "
+              f"(F0 {served[name]['served_median_f0']:.1f} Hz)", flush=True)
+    print(f"      /stream {served['_stream']['bytes']} bytes in {served['_stream']['wall_ms']:.1f} "
+          f"ms; quality gate {info['quality_gate']} (data, not a check, at {CAMPAIGN_STEPS} "
+          f"steps): {info['quality_failures']}", flush=True)
+    assert n_train >= 128, f"the campaign's train split holds {n_train} utterances"
+    assert b3 == CAMPAIGN_STEPS, f"B3 {b3} in the trace of {CAMPAIGN_STEPS} steps"
+    assert b4 == -(-n_val // 128), f"B4 {b4} in the trace of one validation of {n_val} items"
+    assert kernels["device"].startswith("cuda")
+    assert kernels["b1_launches"] == 12 * kernels["synthesise_calls"], kernels
+    assert all(speakers[n]["wav_seconds"] > 0 for n in names), speakers
+    assert all(served[n]["audio_seconds"] > 0 and not served[n]["truncated"] for n in names)
+    assert served["_stream"]["bytes"] > 0 and served["_health"]["status"] == "ok"
+    assert (work / "run" / "avg_eval" / "compare.json").exists()
+    return dict(stage_s=info["stage_seconds"], verdict=info["quality_gate"],
+                failures=info["quality_failures"], b3_launches=b3, b4_launches=b4,
+                val_items=n_val, b1_launches=kernels["b1_launches"],
+                synthesise_calls=kernels["synthesise_calls"])
+
+
+def configurations(fc, mas):
+    """Phase 21: returns each part's figures and launch counts."""
+    t_phase, out = time.perf_counter(), {}
+    for name in RATE_CONFIGS:
+        cfg = named_config(name)
+        out[name] = rate_synthesis(fc, mas, name, cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if name == "ljspeech-48k":
+            out[name].update(rate_training(mas, name, cfg))
+            gc.collect()
+            torch.cuda.empty_cache()
+        b3, b4 = step_card_against_cpu(mas, name, cfg, validation=name == "ljspeech-48k")
+        out[name].update(b3_cross=b3, b4_cross=b4)
+    from optispeech_tpu_torch.models.vocoder.wavenext import WaveNeXtHead
+
+    flagship = WaveNeXtHead(384, 1024, 256).to("cuda")
+    out["flagship_head_ms"] = head_ms(flagship)
+    print(f"  (a) the flagship's head (384 -> 1026 -> 256) alone {out['flagship_head_ms']:.3f} ms"
+          f" on the same frame features", flush=True)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_configs_"))
+    try:
+        t0 = time.perf_counter()
+        out["preprocessing"] = config_preprocessing(fc, root)
+        out["preprocessing_phase_s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["campaign"] = campaign_path(root)
+        out["campaign"]["seconds"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 21 took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3451,6 +3761,12 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
+    phase("21. the configurations not run before (48 kHz and 22.05 kHz synthesis and "
+          "training, preprocessing at 48 kHz and kareem.yaml, scripts/port_campaign.py)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    configs = configurations(fc, mas)
+
     trunk = rows["trunk"]
     kernel = {
         "name": "convnext_block_fused", "route": "cuda",
@@ -3474,6 +3790,12 @@ def main() -> int:
             **{name: others[name]["b1_launches_per_decode"] for name in OTHER_BACKBONES},
             "unit": "per fused decode", "light_cli_infer": others["cli_b1_launches"]},
         "launches_averaged_checkpoint_cli_infer": packed["average"]["b1"],
+        "launches_phase_21": {
+            **{name: configs[name]["b1_launches_per_decode"] for name in RATE_CONFIGS},
+            "unit": "per decode", "kareem_synthesise": configs["preprocessing"]["kareem"][
+                "b1_launches"],
+            "campaign_speaker_check": configs["campaign"]["b1_launches"],
+            "campaign_speaker_check_synthesise_calls": configs["campaign"]["synthesise_calls"]},
         "max_abs_err": max_abs_err["narrow"],
         "ms": trunk["ms"], "plain_ms": trunk["plain_ms"], "bound_ms": trunk["bound_ms"],
         "bound_by": trunk["bound_by"], "library_ms": trunk["library_ms"],
@@ -3514,6 +3836,11 @@ def main() -> int:
             "nccl_one_rank_per_step": parallel["nccl_one_rank"]["b3_per_step"],
             "gloo_two_ranks_per_rank": parallel["gloo_two_ranks"]["b3_per_rank"],
             "unit": "per step (phase 20)"},
+        "launches_phase_21": {
+            "ljspeech-48k_phase_7_batch": configs["ljspeech-48k"]["b3_launches"],
+            **{f"{name}_step_card_against_cpu": configs[name]["b3_cross"]
+               for name in RATE_CONFIGS},
+            "campaign_traced_steps": configs["campaign"]["b3_launches"]},
         "max_abs_err": mas_err["durations"],
         "ms": mas_row["ms"], "plain_ms": mas_row["plain_ms"], "bound_ms": mas_row["bound_ms"],
         "bound_by": mas_row["bound_by"], "library_ms": None, "shape": mas_row["shape"],
@@ -3535,6 +3862,10 @@ def main() -> int:
         "launches_parallel": {
             "nccl_one_rank_per_val_batch": parallel["nccl_one_rank"]["b4_per_val_batch"],
             "unit": "per validation batch (phase 20(a), in a trace)"},
+        "launches_phase_21": {
+            "ljspeech-48k_validation_card_against_cpu": configs["ljspeech-48k"]["b4_cross"],
+            "campaign_traced_validation": configs["campaign"]["b4_launches"],
+            "campaign_val_items": configs["campaign"]["val_items"]},
         "max_abs_err": ext_err["durations"],
         "ms": ext_row["ms"], "plain_ms": ext_row["plain_ms"], "bound_ms": ext_row["bound_ms"],
         "bound_by": ext_row["bound_by"], "library_ms": None, "shape": ext_row["shape"],
@@ -3565,6 +3896,7 @@ def main() -> int:
     print("\n  other backbones: " + json.dumps(others))
     print("\n  packed path: " + json.dumps(packed))
     print("\n  parallelism: " + json.dumps(parallel))
+    print("\n  configurations: " + json.dumps(configs))
     print(f"\n  build {build_s:.1f} s; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [kernel, wide_kernel, mas_kernel, extract_kernel, int8_kernel]}))
     print(card)

@@ -25,8 +25,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
+# --split-compile=8 runs the optimiser's passes on 8 threads: B1's 32
+# instantiations build in 55.4 s in place of 201.6 (chip_smoke.py phase 2,
+# with and without the flag, on an H100 machine with CUDA 12.9)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "--split-compile=8", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # no -march=native: one build serves any x86-64 host that shares build/
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread"]
 

@@ -205,10 +205,15 @@ class ArabicTokenizer(BaseTokenizer):
     special_symbols = dict(pad=PHON_TO_ID[PADDING_TOKEN], bos=None, eos=PHON_TO_ID[EOS_TOKEN])
 
     def __call__(self, text: str, language: str, *, split_sentences: bool = True):
-        """No sentence splitting (reference vendor/arabic_tokenizer behaviour)."""
+        """No sentence splitting (reference vendor/arabic_tokenizer behaviour):
+        asked to split, it returns the whole text as one sentence, so that
+        callers that expect per-sentence lists (`prepare_input`) get one row.
+        JAX's copy returns the flat ids either way, and its `prepare_input`
+        then raises a TypeError."""
         import warnings
 
+        ids = tokens_to_ids(arabic_to_tokens(self.preprocess_text(text, language)))
         if split_sentences:
             warnings.warn("Arabic tokenizer does not support sentence splitting for now.")
-        tokens = arabic_to_tokens(self.preprocess_text(text, language))
-        return tokens_to_ids(tokens), text
+            return [ids], text
+        return ids, text

@@ -240,3 +240,51 @@ def test_seeded_init_is_reproducible_and_flax_like(pair):
     assert torch.all(a["decoder.convnext.1.gamma"] == 0.5)
     assert abs(float(a["text_embedding.embed_tokens.weight"].std()) - 32 ** -0.5) < 0.01
     assert torch.all(a["vocoder.head.linear_1.bias"] == 0)
+
+
+_CAMPAIGN_SCRIPTS = """
+import importlib.util, sys
+from pathlib import Path
+spec = importlib.util.spec_from_file_location("port_campaign", "scripts/port_campaign.py")
+pc = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(pc)
+pc.run = lambda *a, **kw: 0  # write the stages' scripts, run nothing
+work = Path(sys.argv[1])
+pc.stage_calibrate_gate(work, work / "corpus", work / "pre", None)
+pc.stage_speaker_check(work, work / "run", work / "corpus", None, device="cpu")
+(work / "artifact").mkdir()
+pc.stage_serve_check(work, work / "artifact", work / "corpus", None, device="cpu")
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "optispeech_tpu"))
+assert not bad, bad
+"""
+
+
+def test_port_campaign_and_its_scripts_import_neither_jax_nor_the_jax_package(tmp_path):
+    """scripts/port_campaign.py loads neither JAX nor the JAX package, every
+    module it runs with `-m` is the port's, and the scripts its stages write
+    (calibration, speaker check, serve check) import the port only: every
+    import statement of each, read with `ast`."""
+    import ast
+    import re
+
+    proc = subprocess.run([sys.executable, "-c", _CAMPAIGN_SCRIPTS, str(tmp_path)], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    source = (REPO / "scripts" / "port_campaign.py").read_text()
+    modules = re.findall(r'"(optispeech_tpu\w*(?:\.\w+)*)"', source)
+    assert modules and all(m.startswith("optispeech_tpu_torch.") for m in modules), modules
+    scripts = sorted(tmp_path.glob("_*.py"))
+    assert [p.name for p in scripts] == ["_gate_calibration.py", "_serve_check.py",
+                                         "_speaker_check.py"]
+    for path in [REPO / "scripts" / "port_campaign.py", *scripts]:
+        imported = set()
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                imported |= {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom):
+                imported.add((node.module or "").split(".")[0])
+        assert not imported & {"jax", "jaxlib", "flax", "optax", "orbax", "optispeech_tpu"}, (
+            path.name, imported)
+        if path.name != "port_campaign.py":
+            assert "optispeech_tpu_torch" in imported, path.name

@@ -143,3 +143,31 @@ def random_tokens(rng, lengths, bucket=32):
     for i, n in enumerate(lengths):
         x[i, :n] = rng.integers(3, 150, n)
     return x, np.asarray(lengths, np.int32)
+
+
+# Test widths over a configs/*.yaml file (small_config's and tiny_experiment's
+# sizes): what the file sets beyond widths (the feature block, statistics,
+# text front end, speakers and languages, preprocessing, train_args) stays
+# as it is. The segment is cut to 16 frames: the discriminators' cost on the
+# CPU grows with its samples (32 768 at 48 kHz at the published 64 frames).
+TEST_WIDTHS = (
+    "generator.dim=32", "generator.segment_size=16",
+    "generator.encoder.intermediate_dim=64", "generator.encoder.num_layers=2",
+    "generator.decoder.intermediate_dim=64", "generator.decoder.num_layers=2",
+    "generator.vocoder.dim=48", "generator.vocoder.intermediate_dim=96",
+    "generator.vocoder.num_layers=2",
+    "generator.duration_predictor.intermediate_dim=48",
+    "generator.pitch_predictor.num_layers=2", "generator.pitch_predictor.intermediate_dim=48",
+    "generator.energy_predictor.intermediate_dim=48",
+    "discriminator.periods=[2,3]", "discriminator.mrd_channels=16",
+    "data.text_bucket_size=16", "data.mel_bucket_size=64",
+    "train_args.pretraining_steps=0",
+)
+
+
+def yaml_config(name, *overrides):
+    """configs/<name>.yaml through the JAX package's `load_experiment` at
+    TEST_WIDTHS, then `overrides`, every dropout at 0."""
+    from optispeech_tpu.utils.yamlcfg import load_experiment
+
+    return no_dropout(load_experiment(name, [*TEST_WIDTHS, *overrides]))
