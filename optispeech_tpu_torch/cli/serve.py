@@ -6,7 +6,7 @@ power-of-two ladder, the wire format computed on the device, an adaptive
 frame cap), whose rows are split back per request.
 
 Endpoints:
-    GET  /health             -> {"status": "ok", ...counters}
+    GET  /health             -> {"status": "ok", ...counters} (below)
     GET  /info               -> model metadata (sample rate, speakers, ...)
     POST /synthesise         JSON body (also /synthesize):
         {"text": "...", "speaker": null, "language": null,
@@ -30,6 +30,21 @@ requests with equal (d, p, e) coalesce; speaker and language ids are per
 row and batch freely. One batcher thread makes every batched device call;
 /stream handlers run their windows on their own threads.
 
+/health, the operator's view of the batcher: `requests_served`,
+`batches_run`, `rows_synthesised` (real sentence rows, the ladder's padding
+left out), `requests_rejected` (429s: the queue was full), `deferrals`
+(requests that waited a batch because their (d, p, e) differed from the
+batch's), `frame_cap_retries` (batches run again at a doubled frame cap:
+the frames/token estimate was short), `truncated_rows` (rows cut at the
+largest cap, answered with X-Truncated) and `stage_seconds`, the batcher
+thread's wall summed by stage: `merge`, `synthesise` (the device call
+through the host's read of the lengths; retries included), `fetch` (the
+audio's copy to the host) and `split` (rows joined per request).
+With tracing on (`utils/tracing.py`) each request leaves a `serve/queue`
+span (submit to drained into a batch, its id and the batches it was passed
+over) and each batch `serve/merge`, `serve/synthesise`, `serve/fetch` and
+`serve/split` spans with the batch's id and its requests' ids.
+
 The model is a live checkpoint (`config.json` + `generator.pt`) or an
 exported artifact (`metadata.json`, `export/exporter.py`): the artifact's
 batches replay its graphs up its batch ladder (`ExportedOptiSpeech.
@@ -47,6 +62,7 @@ Usage:
 import argparse
 import base64
 import io
+import itertools
 import json
 import os
 import queue
@@ -57,6 +73,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from ..utils import tracing
 from ..utils.pylogger import get_pylogger
 
 log = get_pylogger(__name__)
@@ -83,9 +100,13 @@ def load_model(path: str, bf16: bool = False, fused: bool = True, device=None):
 
 class _Pending:
     __slots__ = ("inputs", "event", "pcm16", "mulaw", "wants_mulaw",
-                 "sample_rate", "latency_ms", "error", "truncated")
+                 "sample_rate", "latency_ms", "error", "truncated", "id", "submitted_ns",
+                 "passed_over")
 
     def __init__(self, inputs, wants_mulaw: bool = False):
+        self.id = 0  # given at submit
+        self.submitted_ns = 0  # time.perf_counter_ns() at submit
+        self.passed_over = 0  # drains that left it deferred
         self.inputs = inputs  # InferenceInputs (rows = sentences)
         self.event = threading.Event()
         self.pcm16 = None  # little-endian int16 waveform
@@ -107,7 +128,9 @@ class Batcher:
     `merge`, `synthesise` (`synthesise_on_device` through the host's read
     of the lengths, which waits for the device; retries included), `fetch`
     (the audio's copy to the host) and `split` (the rows joined per
-    request)."""
+    request), each from the two clock reads of its `serve/<stage>` span.
+    `deferrals`, `frame_cap_retries` and `truncated_rows` count what the
+    module docstring says /health reports."""
 
     def __init__(self, model, max_batch: int = 32, wait_ms: float = 20.0,
                  frames_per_token: int = 8, max_pending: int = 256):
@@ -130,7 +153,12 @@ class Batcher:
         self.requests_served = 0
         self.batches_run = 0
         self.rows_synthesised = 0
+        self.deferrals = 0
+        self.frame_cap_retries = 0
+        self.truncated_rows = 0
         self.stage_seconds = {"merge": 0.0, "synthesise": 0.0, "fetch": 0.0, "split": 0.0}
+        self._request_ids = itertools.count(1)
+        self._batch_ids = itertools.count(1)
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
@@ -141,6 +169,8 @@ class Batcher:
                 self.requests_rejected += 1
                 return False
             self._inflight += 1
+            pending.id = next(self._request_ids)
+        pending.submitted_ns = time.perf_counter_ns()
         self.q.put(pending)
         return True
 
@@ -165,6 +195,7 @@ class Batcher:
                 group.append(d)
                 rows += n
             else:
+                d.passed_over += 1
                 still_deferred.append(d)
         self._deferred = still_deferred
         deadline = time.perf_counter() + self.wait_ms / 1e3
@@ -177,10 +208,13 @@ class Batcher:
             except queue.Empty:
                 break
             n = nxt.inputs.x.shape[0]
-            if self._factor_key(nxt.inputs) == key and rows + n <= self.max_batch:
+            same_key = self._factor_key(nxt.inputs) == key
+            if same_key and rows + n <= self.max_batch:
                 group.append(nxt)
                 rows += n
             else:
+                self.deferrals += not same_key
+                nxt.passed_over += 1
                 self._deferred.append(nxt)
         return group
 
@@ -224,10 +258,11 @@ class Batcher:
             clean_text=" | ".join(str(p.inputs.clean_text) for p in group),
         ), n_real
 
-    def _synthesise_batch(self, merged, wire: str = "pcm16"):
+    def _synthesise_batch(self, merged, wire: str = "pcm16", **ids):
         """Returns (audio rows in `wire` format, per-row sample lengths,
         truncated mask, latency_ms). `wire` is "pcm16" (int16) or "mulaw"
-        (uint8, a quarter of the float32 bytes).
+        (uint8, a quarter of the float32 bytes); `ids` (the batch's id and
+        its requests') go into the stage spans.
 
         A live model: one `synthesise_on_device` call, with the wire
         computed on the device. The frame cap is the observed frames/token
@@ -236,30 +271,30 @@ class Batcher:
         batch runs again, up to `data.max_mel_len`. An exported artifact:
         its generic `synthesise`, the wire transcoded on the host."""
         if not hasattr(self.model, "synthesise_on_device"):
-            return self._synthesise_generic(merged, wire)
+            return self._synthesise_generic(merged, wire, **ids)
         from ..utils.bucketing import round_up_pow2_bucket
 
-        t0 = time.perf_counter()
         hop = self.model.hop_length
-        bucket = self.model.mel_bucket
-        cap = getattr(getattr(self.model, "cfg", None), "data", None)
-        cap = getattr(cap, "max_mel_len", None) or 4096
-        t = int(np.asarray(merged.x_lengths).max())
-        # the estimate may exceed the initial frames_per_token guess; it is
-        # kept per unit d_factor, so a d=2.0 batch does not inflate the
-        # default-rate batches after it
-        d = float(merged.d_factor) or 1.0
-        fpt = self.frames_per_token if not self._fpt_window \
-            else max(self._fpt_window) * 1.25 * d
-        n_frames = round_up_pow2_bucket(int(t * fpt), bucket, cap)
-        while True:
-            out = self.model.synthesise_on_device(
-                merged, n_frames, pcm16=(wire == "pcm16"), mulaw=(wire == "mulaw"))
-            wav_lengths = out["wav_lengths"].cpu().numpy()
-            if (wav_lengths < n_frames * hop).all() or n_frames >= cap:
-                break
-            n_frames = min(n_frames * 2, cap)
-        t1 = time.perf_counter()
+        with tracing.timed(self.stage_seconds, "synthesise", "serve/synthesise", **ids) as synth:
+            bucket = self.model.mel_bucket
+            cap = getattr(getattr(self.model, "cfg", None), "data", None)
+            cap = getattr(cap, "max_mel_len", None) or 4096
+            t = int(np.asarray(merged.x_lengths).max())
+            # the estimate may exceed the initial frames_per_token guess; it is
+            # kept per unit d_factor, so a d=2.0 batch does not inflate the
+            # default-rate batches after it
+            d = float(merged.d_factor) or 1.0
+            fpt = self.frames_per_token if not self._fpt_window \
+                else max(self._fpt_window) * 1.25 * d
+            n_frames = round_up_pow2_bucket(int(t * fpt), bucket, cap)
+            while True:
+                out = self.model.synthesise_on_device(
+                    merged, n_frames, pcm16=(wire == "pcm16"), mulaw=(wire == "mulaw"))
+                wav_lengths = out["wav_lengths"].cpu().numpy()
+                if (wav_lengths < n_frames * hop).all() or n_frames >= cap:
+                    break
+                n_frames = min(n_frames * 2, cap)
+                self.frame_cap_retries += 1
         # rows that still fill the cap are truncated: say so, rather than
         # ship a cut wav silently
         truncated = wav_lengths >= n_frames * hop
@@ -270,67 +305,67 @@ class Batcher:
         ratio = float((wav_lengths / hop / np.maximum(lens, 1)).max()) / d
         self._fpt_window.append(ratio)
         wav_lengths = wav_lengths.astype(int)
-        if wire == "mulaw":
-            # packed fetch: only the valid samples cross to the host
-            flat = self.model.fetch_packed(out["wav_mulaw_packed"], int(wav_lengths.sum()))
-            offs = np.concatenate([[0], np.cumsum(wav_lengths)[:-1]])
-            rows = [flat[offs[j]: offs[j] + wav_lengths[j]] for j in range(len(wav_lengths))]
-        else:
-            audio = out["wav_pcm16"].cpu().numpy()
-            rows = [audio[j, : wav_lengths[j]] for j in range(len(wav_lengths))]
-        t2 = time.perf_counter()
-        self.stage_seconds["synthesise"] += t1 - t0
-        self.stage_seconds["fetch"] += t2 - t1
-        return rows, wav_lengths, truncated, (t2 - t0) * 1e3
+        with tracing.timed(self.stage_seconds, "fetch", "serve/fetch", **ids) as fetch:
+            if wire == "mulaw":
+                # packed fetch: only the valid samples cross to the host
+                flat = self.model.fetch_packed(out["wav_mulaw_packed"], int(wav_lengths.sum()))
+                offs = np.concatenate([[0], np.cumsum(wav_lengths)[:-1]])
+                rows = [flat[offs[j]: offs[j] + wav_lengths[j]] for j in range(len(wav_lengths))]
+            else:
+                audio = out["wav_pcm16"].cpu().numpy()
+                rows = [audio[j, : wav_lengths[j]] for j in range(len(wav_lengths))]
+        return rows, wav_lengths, truncated, (synth.seconds + fetch.seconds) * 1e3
 
-    def _synthesise_generic(self, merged, wire: str):
+    def _synthesise_generic(self, merged, wire: str, **ids):
         """`synthesise` (an artifact's, up its batch ladder), its float32
         audio transcoded on the host; nothing is truncated. Its wall counts
         as `synthesise` (the audio's fetch included)."""
-        t0 = time.perf_counter()
-        out = self.model.synthesise(merged)
-        wav_lengths = np.asarray(out.wav_lengths).astype(int)
-        if wire == "mulaw":
-            from ..ops.mulaw import mulaw_encode_np
+        with tracing.timed(self.stage_seconds, "synthesise", "serve/synthesise", **ids) as synth:
+            out = self.model.synthesise(merged)
+            wav_lengths = np.asarray(out.wav_lengths).astype(int)
+            if wire == "mulaw":
+                from ..ops.mulaw import mulaw_encode_np
 
-            audio = mulaw_encode_np(np.asarray(out.wav))
-        else:
-            audio = (np.clip(np.asarray(out.wav), -1, 1) * 32767.0).astype("<i2")
-        rows = [audio[j, : wav_lengths[j]] for j in range(len(wav_lengths))]
-        t1 = time.perf_counter()
-        self.stage_seconds["synthesise"] += t1 - t0
-        return rows, wav_lengths, np.zeros(len(wav_lengths), bool), (t1 - t0) * 1e3
+                audio = mulaw_encode_np(np.asarray(out.wav))
+            else:
+                audio = (np.clip(np.asarray(out.wav), -1, 1) * 32767.0).astype("<i2")
+            rows = [audio[j, : wav_lengths[j]] for j in range(len(wav_lengths))]
+        return rows, wav_lengths, np.zeros(len(wav_lengths), bool), synth.seconds * 1e3
 
     def _loop(self):
         while True:
             first = self._deferred.pop(0) if self._deferred else self.q.get()
             group = self._drain_compatible(first)
+            drained_ns = time.perf_counter_ns()
+            for p in group:
+                tracing.record("serve/queue", p.submitted_ns, drained_ns, request=p.id,
+                               passed_over=p.passed_over)
+            ids = {"batch": next(self._batch_ids), "requests": [p.id for p in group]}
             try:
-                t0 = time.perf_counter()
-                merged, n_real = self._merge(group)
-                self.stage_seconds["merge"] += time.perf_counter() - t0
+                with tracing.timed(self.stage_seconds, "merge", "serve/merge", **ids):
+                    merged, n_real = self._merge(group)
                 # the 8-bit wire only when every request of the batch asked
                 # for it (a mixed batch fetches pcm16 and the handler
                 # transcodes for the µ-law requests)
                 wire = "mulaw" if all(p.wants_mulaw for p in group) else "pcm16"
                 rows, wav_lengths, truncated, latency_ms = self._synthesise_batch(
-                    merged, wire=wire)
-                t0 = time.perf_counter()
-                i = 0
-                for p in group:
-                    n = p.inputs.x.shape[0]
-                    joined = np.concatenate(rows[i: i + n])
-                    if wire == "mulaw":
-                        p.mulaw = joined
-                    else:
-                        p.pcm16 = joined
-                    p.sample_rate = self.model.sample_rate
-                    p.latency_ms = latency_ms
-                    p.truncated = bool(truncated[i: i + n].any())
-                    i += n
-                self.stage_seconds["split"] += time.perf_counter() - t0
+                    merged, wire=wire, **ids)
+                with tracing.timed(self.stage_seconds, "split", "serve/split", **ids):
+                    i = 0
+                    for p in group:
+                        n = p.inputs.x.shape[0]
+                        joined = np.concatenate(rows[i: i + n])
+                        if wire == "mulaw":
+                            p.mulaw = joined
+                        else:
+                            p.pcm16 = joined
+                        p.sample_rate = self.model.sample_rate
+                        p.latency_ms = latency_ms
+                        p.truncated = bool(truncated[i: i + n].any())
+                        i += n
                 self.batches_run += 1
                 self.rows_synthesised += n_real
+                self.truncated_rows += int(truncated[:n_real].sum())
                 self.requests_served += len(group)
             except Exception as e:  # answer each request of the batch, keep serving
                 log.exception("batch failed")
@@ -403,6 +438,10 @@ def _make_handler_cls(model, batcher, timeout_s, get_streamer):
                     "batches_run": batcher.batches_run,
                     "rows_synthesised": batcher.rows_synthesised,
                     "requests_rejected": batcher.requests_rejected,
+                    "deferrals": batcher.deferrals,
+                    "frame_cap_retries": batcher.frame_cap_retries,
+                    "truncated_rows": batcher.truncated_rows,
+                    "stage_seconds": dict(batcher.stage_seconds),
                 })
             elif self.path == "/info":
                 self._json(200, {

@@ -15,6 +15,9 @@ down the module tree as JAX passes it): the parameters stay float32 and the
 activations run in `dtype`, but for JAX's float32 islands (the alignment
 distance, MAS, the losses, the upsampling weights before their product) and
 the waveform, which leaves in float32.
+
+Spans (`utils/tracing.py`): `encode`, `decode` and, inside it, `decoder` and
+`vocoder`; `train/mas` around the training forward's MAS.
 """
 
 import torch
@@ -33,6 +36,7 @@ from ..ops import (
     viterbi_decode_extract,
 )
 from ..parallel.mesh import mean_share
+from ..utils import tracing
 from .losses import fastspeech2_loss
 from .modules.alignment import AlignmentModule
 from .modules.conformer import ConformerBackbone
@@ -161,8 +165,11 @@ class OptiSpeechGenerator(nn.Module):
                                            mel_lengths, x_masks=input_padding_mask)
         # the DP is detached inside viterbi_decode; the bin loss trains the
         # alignment module through its gather
-        mas = viterbi_decode_extract if extract_durations else viterbi_decode
-        durations, bin_loss = mas(log_p_attn, x_lengths, mel_lengths)
+        if extract_durations:
+            durations, bin_loss = viterbi_decode_extract(log_p_attn, x_lengths, mel_lengths)
+        else:
+            with tracing.span("train/mas"):
+                durations, bin_loss = viterbi_decode(log_p_attn, x_lengths, mel_lengths)
         duration_hat = self.duration_predictor(h.detach(), input_padding_mask, generator)
 
         pitches_tok = average_by_duration(durations, pitches, x_lengths, mel_lengths)
@@ -203,13 +210,14 @@ class OptiSpeechGenerator(nn.Module):
     def encode(self, x, x_lengths, sids=None, lids=None,
                d_factor: float = 1.0, p_factor: float = 1.0, e_factor: float = 1.0):
         """Token-rate stage: hidden states and integer durations."""
-        x_mask = sequence_mask(x_lengths, x.shape[1])
-        input_padding_mask = ~x_mask
-        h = self._encode_text(x, input_padding_mask, sids, lids)
-        durations = self.duration_predictor.infer(h, input_padding_mask, factor=d_factor)
-        h, pitch = self.pitch_predictor.infer(h, input_padding_mask, p_factor)
-        h, energy = self.energy_predictor.infer(h, input_padding_mask, e_factor)
-        y_lengths = durations.sum(dim=1, dtype=torch.int32)
+        with tracing.span("encode"):
+            x_mask = sequence_mask(x_lengths, x.shape[1])
+            input_padding_mask = ~x_mask
+            h = self._encode_text(x, input_padding_mask, sids, lids)
+            durations = self.duration_predictor.infer(h, input_padding_mask, factor=d_factor)
+            h, pitch = self.pitch_predictor.infer(h, input_padding_mask, p_factor)
+            h, energy = self.energy_predictor.infer(h, input_padding_mask, e_factor)
+            y_lengths = durations.sum(dim=1, dtype=torch.int32)
         return {
             "hidden": h, "durations": durations, "pitch": pitch, "energy": energy,
             "y_lengths": y_lengths, "x_mask": x_mask,
@@ -229,13 +237,16 @@ class OptiSpeechGenerator(nn.Module):
         """Frame-rate stage: upsample -> decoder -> vocoder at `n_frames`.
         `pitch` (token level, p_factor applied) is required when the vocoder
         is f0-conditioned."""
-        y_mask = sequence_mask(y_lengths, n_frames)
-        target_padding_mask = ~y_mask
-        y = gaussian_upsample(hidden, durations.float(), y_mask, x_mask)
-        y = self.decoder(y, target_padding_mask)
-        f0_frames = None
-        if self.cfg.vocoder.f0_cond:
-            f0_frames, _ = expand_by_duration(pitch[..., None], durations, n_frames)
-            f0_frames = f0_frames[..., 0] * y_mask.to(f0_frames.dtype)
-        wav = self.vocoder(y, f0=f0_frames, padding_mask=target_padding_mask)
+        with tracing.span("decode"):
+            y_mask = sequence_mask(y_lengths, n_frames)
+            target_padding_mask = ~y_mask
+            y = gaussian_upsample(hidden, durations.float(), y_mask, x_mask)
+            with tracing.span("decoder"):
+                y = self.decoder(y, target_padding_mask)
+            f0_frames = None
+            if self.cfg.vocoder.f0_cond:
+                f0_frames, _ = expand_by_duration(pitch[..., None], durations, n_frames)
+                f0_frames = f0_frames[..., 0] * y_mask.to(f0_frames.dtype)
+            with tracing.span("vocoder"):
+                wav = self.vocoder(y, f0=f0_frames, padding_mask=target_padding_mask)
         return {"wav": wav.float(), "wav_lengths": y_lengths * self.cfg.features.hop_length}

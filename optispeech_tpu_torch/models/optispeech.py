@@ -4,7 +4,8 @@ and the inference checkpoint (save_checkpoint / load_from_checkpoint).
 Port of `optispeech_tpu/models/optispeech.py`. Inference runs in two stages
 as in JAX: token-rate `encode` at a text bucket, one host sync that reads the
 predicted frame count and picks the mel bucket, then frame-rate `decode`.
-`synthesise_on_device` runs both with a fixed frame cap and no sync.
+`synthesise_on_device` runs both with a fixed frame cap and no sync, inside
+the span `synthesise` (`utils/tracing.py`).
 `compute_dtype=torch.bfloat16` runs the generator in bf16, as JAX's
 `compute_dtype=jnp.bfloat16` does; the weights and checkpoints stay float32.
 """
@@ -19,6 +20,7 @@ import torch
 from ..config import ExperimentConfig, InferenceArgs
 from ..ops.mulaw import mulaw_encode, pack_valid_rows
 from ..text import TextProcessor
+from ..utils import tracing
 from ..utils.bucketing import round_up_to_bucket
 from ..utils.device import resolve_device
 from ..values import InferenceInputs, InferenceOutputs
@@ -122,14 +124,18 @@ class OptiSpeech:
         `wav_mulaw` (uint8 µ-law codes, `ops/mulaw.py`), `wav_mulaw_packed`
         (every row's valid prefix at cumulative offsets, so that a fetch
         ships only real samples) and `wav_offsets`."""
-        out = self.generator.synthesise_fixed(*self._tensors(inputs), n_frames=n_frames)
-        if pcm16:
-            out["wav_pcm16"] = torch.round(out["wav"] * 32767.0).to(torch.int16)
-        if mulaw:
-            codes = mulaw_encode(out["wav"])
-            out["wav_mulaw"] = codes
-            out["wav_mulaw_packed"], out["wav_offsets"] = pack_valid_rows(codes,
-                                                                         out["wav_lengths"])
+        rows, width = inputs.x.shape
+        bucket = self.text_bucket  # text_width: the width `_tensors` pads x to
+        with tracing.span("synthesise", rows=rows, n_frames=n_frames,
+                          text_width=max(-(-width // bucket) * bucket, bucket)):
+            out = self.generator.synthesise_fixed(*self._tensors(inputs), n_frames=n_frames)
+            if pcm16:
+                out["wav_pcm16"] = torch.round(out["wav"] * 32767.0).to(torch.int16)
+            if mulaw:
+                codes = mulaw_encode(out["wav"])
+                out["wav_mulaw"] = codes
+                out["wav_mulaw_packed"], out["wav_offsets"] = pack_valid_rows(
+                    codes, out["wav_lengths"])
         return out
 
     def fetch_packed(self, packed: torch.Tensor, n_valid: int, bucket: int = 65536) -> np.ndarray:

@@ -26,9 +26,11 @@ w1 (C, I), w2 (I, C). Both blocks compute the GELU as the JAX kernels do,
   `convnext_block_int8_launch`; the wrapper packs per call unless given the
   pack. Its twin is `convnext_block_int8_reference`.
 - Each wrapper launches its kernel for a CUDA tensor or raises, and runs its
-  twin for a CPU tensor; `<wrapper>.launches` counts kernel launches
+  twin for a CPU tensor; `<wrapper>.launches` counts kernel launches issued
   (`convnext_block_fused.wide_launches` those of B1's wide path), under a
-  lock, since a server launches from several threads.
+  lock, since a server launches from several threads. A launch into a CUDA
+  graph being captured counts in `captured_launches` (`captured_wide_launches`)
+  instead: a graph's replays launch without the wrapper.
 - B1 is also a registered op, `torch.ops.optispeech_tpu_torch.
   convnext_block_fused` (`OP_NAME`, `_convnext_block_op`), which its wrapper
   calls: the twin for a CPU tensor, `convnext_block_launch` (which counts
@@ -197,12 +199,18 @@ _OP = torch.ops.optispeech_tpu_torch.convnext_block_fused.default
 
 convnext_block_fused.launches = 0
 convnext_block_fused.wide_launches = 0  # of those, the wide path's (C > MAX_CHANNELS)
+convnext_block_fused.captured_launches = 0
+convnext_block_fused.captured_wide_launches = 0
 _COUNT_LOCK = threading.Lock()
 
 
 def count_launch(wrapper, *counters):
     """Add one to each named counter of `wrapper` (`+=` on an attribute is
-    not atomic across threads)."""
+    not atomic across threads), or to its `captured_<name>` twin where the
+    current stream is capturing a CUDA graph. Call it under the launch's
+    device."""
+    if torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing():
+        counters = tuple("captured_" + name for name in counters)
     with _COUNT_LOCK:
         for name in counters:
             setattr(wrapper, name, getattr(wrapper, name) + 1)
@@ -304,9 +312,9 @@ def convnext_block_launch(x, dw, dwb, lnw, lnb, packed, b1, b2, gamma):
             x.data_ptr(), out.data_ptr(), dw.data_ptr(), dwb.data_ptr(), lnw.data_ptr(),
             lnb.data_ptr(), packed.data_ptr(), b1.data_ptr(), b2.data_ptr(), gamma.data_ptr(),
             b, t, c, b1.shape[0], int(x.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"convnext_block_fused: kernel launch failed with cudaError {err}")
-    count_launch(convnext_block_fused, "launches")
+        if err != 0:
+            raise RuntimeError(f"convnext_block_fused: kernel launch failed with cudaError {err}")
+        count_launch(convnext_block_fused, "launches")
     return out
 
 
@@ -405,9 +413,10 @@ def convnext_block_wide_launch(x, dw, dwb, lnw, lnb, packed, b1, b2, gamma):
             h_img.data_ptr(), u_img.data_ptr(), None if partials is None else partials.data_ptr(),
             b, t, c, inter, plan["k_splits"], plan["k_per_split"], int(x.dtype == torch.bfloat16),
             stream)
-    if err != 0:
-        raise RuntimeError(f"convnext_block_fused: wide-path launch failed with cudaError {err}")
-    count_launch(convnext_block_fused, "launches", "wide_launches")
+        if err != 0:
+            raise RuntimeError(
+                f"convnext_block_fused: wide-path launch failed with cudaError {err}")
+        count_launch(convnext_block_fused, "launches", "wide_launches")
     return out
 
 
@@ -540,6 +549,7 @@ def convnext_block_fused_int8(x, dw, dwb, lnw, lnb, w1, b1, w2, b2, gamma, *, pa
 
 
 convnext_block_fused_int8.launches = 0
+convnext_block_fused_int8.captured_launches = 0
 
 
 def kernel_weights_int8(w1, w2):
@@ -585,9 +595,10 @@ def convnext_block_int8_launch(x, dw, dwb, lnw, lnb, packed, b1, b2, gamma):
             b2.data_ptr(), gamma.data_ptr(), b, t, c, inter, int(x.dtype == torch.bfloat16),
             stream,
         )
-    if err != 0:
-        raise RuntimeError(f"convnext_block_fused_int8: kernel launch failed with cudaError {err}")
-    count_launch(convnext_block_fused_int8, "launches")
+        if err != 0:
+            raise RuntimeError(
+                f"convnext_block_fused_int8: kernel launch failed with cudaError {err}")
+        count_launch(convnext_block_fused_int8, "launches")
     return out
 
 

@@ -12,8 +12,9 @@ loss, whose gradient reaches log_p_attn).
   for the durations or raises, then takes the bin loss outside the kernel
   as the wavefront function does: the path is rebuilt from the durations
   (cumsum + searchsorted) and gathered from the live log-probs.
-  `viterbi_decode.launches` counts kernel launches. For a CPU tensor it runs
-  the twin.
+  `viterbi_decode.launches` counts kernel launches (`captured_launches`
+  those into a CUDA graph being captured; `fused_convnext.count_launch`).
+  For a CPU tensor it runs the twin.
 - `viterbi_decode_reference` is the twin: the JAX scan written as Python
   loops over frames (forward DP over the masked log-probs, backtrace that
   pins the last valid frame to the last token, `>=` breaking ties).
@@ -41,6 +42,7 @@ import functools
 import torch
 
 from . import _build
+from .fused_convnext import count_launch
 
 BIG_NEG = -1e9
 # the kernels' template instantiations: the contiguous tokens each of the
@@ -178,14 +180,17 @@ def _kernel_inputs(log_p_attn, text_lengths, feats_lengths):
     return lp, tl, fl, per_lane, dec
 
 
-def _launch(name, *args):
+def _launch(name, wrapper, *args):
+    """Launch kernel `name` on the current stream of args[0]'s device and
+    count it in `wrapper`'s launch counters."""
     device = args[0].device
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         err = getattr(_library(name), f"{name}_launch")(
             *(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args), stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with cudaError {err}")
+        if err != 0:
+            raise RuntimeError(f"{name}: kernel launch failed with cudaError {err}")
+        count_launch(wrapper, "launches")
 
 
 def mas_durations(log_p_attn, text_lengths, feats_lengths):
@@ -193,8 +198,8 @@ def mas_durations(log_p_attn, text_lengths, feats_lengths):
     lp, tl, fl, per_lane, dec = _kernel_inputs(log_p_attn, text_lengths, feats_lengths)
     b, t_feats, t_text = lp.shape
     durations = torch.empty((b, t_text), dtype=torch.float32, device=lp.device)
-    _launch("mas_wavefront", lp, tl, fl, durations, dec, b, t_feats, t_text, per_lane)
-    viterbi_decode.launches += 1
+    _launch("mas_wavefront", viterbi_decode, lp, tl, fl, durations, dec, b, t_feats, t_text,
+            per_lane)
     return durations
 
 
@@ -205,8 +210,8 @@ def mas_extract(log_p_attn, text_lengths, feats_lengths):
     b, t_feats, t_text = lp.shape
     durations = torch.empty((b, t_text), dtype=torch.float32, device=lp.device)
     binsum = torch.empty_like(durations)
-    _launch("mas_extract", lp, tl, fl, durations, binsum, dec, b, t_feats, t_text, per_lane)
-    viterbi_decode_extract.launches += 1
+    _launch("mas_extract", viterbi_decode_extract, lp, tl, fl, durations, binsum, dec, b,
+            t_feats, t_text, per_lane)
     return durations, binsum
 
 
@@ -228,6 +233,7 @@ def viterbi_decode(log_p_attn, text_lengths, feats_lengths):
 
 
 viterbi_decode.launches = 0
+viterbi_decode.captured_launches = 0
 
 
 def viterbi_decode_extract(log_p_attn, text_lengths, feats_lengths):
@@ -245,6 +251,7 @@ def viterbi_decode_extract(log_p_attn, text_lengths, feats_lengths):
 
 
 viterbi_decode_extract.launches = 0
+viterbi_decode_extract.captured_launches = 0
 
 # pointers (5 or 6), then batch, T_feats, T_text, tokens per lane, stream
 _POINTERS = {"mas_wavefront": 5, "mas_extract": 6}

@@ -39,6 +39,12 @@ step equals one process's step over the global batch. The logs are the
 rank's shares (`parallel.reduce_logs` sums them; `grad_norm/*`, the norm
 of the reduced gradient, is global already). Without a mesh nothing of
 this runs.
+
+Spans (`utils/tracing.py`): `train/step` around a step, inside it
+`train/g_turn` (G's forward, D's adversarial losses, G's gradient),
+`train/g_update` (G's optimiser), `train/d_turn` (the recompute, D's
+losses, its gradient) and `train/d_update`; the cached and scan steps get
+them through the same step.
 """
 
 import torch
@@ -46,6 +52,7 @@ import torch
 from ..config import ExperimentConfig
 from ..ops.segments import get_segments
 from ..parallel.mesh import all_reduce_grads
+from ..utils import tracing
 from .state import TrainState
 
 ADV_KEYS = ("loss_gen_mp", "loss_gen_mrd", "loss_fm_mp", "loss_fm_mrd", "mel_loss",
@@ -85,6 +92,7 @@ def make_train_step(cfg: ExperimentConfig, mesh=None):
     # `state.step` counts micro-batches, `pretraining_steps` optimiser steps
     accum = cfg.train_args.gradient_accumulate_batches or 1
 
+    @tracing.traced("train/step")
     def train_step(state: TrainState, batch: dict) -> dict:
         gen, disc = state.generator, state.discriminator
         gen.train()
@@ -93,13 +101,14 @@ def make_train_step(cfg: ExperimentConfig, mesh=None):
 
         # ---- generator update ----------------------------------------------
         rng_before = None if cache else state.rng.get_state()
-        out, wav, adv_loss, adv_log = _generator_turn(gen, disc, batch, hop, state.rng,
-                                                      train_disc, mesh)
-        wav_hat = out["wav_hat"]
-        loss = out["loss"] + adv_loss
-        g_grads = torch.autograd.grad(loss, state.g_opt.params, allow_unused=True)
-        if mesh is not None:
-            g_grads = all_reduce_grads(g_grads, mesh)
+        with tracing.span("train/g_turn"):
+            out, wav, adv_loss, adv_log = _generator_turn(gen, disc, batch, hop, state.rng,
+                                                          train_disc, mesh)
+            wav_hat = out["wav_hat"]
+            loss = out["loss"] + adv_loss
+            g_grads = torch.autograd.grad(loss, state.g_opt.params, allow_unused=True)
+            if mesh is not None:
+                g_grads = all_reduce_grads(g_grads, mesh)
         logs = {
             "total_loss/train_am_loss": out["loss"],
             "total_loss/train_gen_adv_loss": adv_loss,
@@ -110,24 +119,27 @@ def make_train_step(cfg: ExperimentConfig, mesh=None):
             "gen_subloss/train_energy_loss": out["energy_loss"],
             **{f"gen_adv_loss/train_{k}": v for k, v in adv_log.items()},
         }
-        logs["grad_norm/generator"] = state.g_opt.update(g_grads)
+        with tracing.span("train/g_update"):
+            logs["grad_norm/generator"] = state.g_opt.update(g_grads)
 
         # ---- discriminator update ------------------------------------------
         if train_disc:
-            if not cache:
-                # the same draws as the G turn leave the RNG where it was
-                rng_after = state.rng.get_state()
-                state.rng.set_state(rng_before)
-                with torch.no_grad():
-                    recomputed, wav, _, _ = _generator_turn(gen, disc, batch, hop, state.rng,
-                                                            False, mesh)
-                wav_hat = recomputed["wav_hat"]
-                state.rng.set_state(rng_after)
-            d_loss, d_log = disc.forward_disc(wav.detach(), wav_hat.detach(), mesh)
-            d_grads = torch.autograd.grad(d_loss, state.d_opt.params, allow_unused=True)
-            if mesh is not None:
-                d_grads = all_reduce_grads(d_grads, mesh)
-            d_gnorm = state.d_opt.update(d_grads)
+            with tracing.span("train/d_turn"):
+                if not cache:
+                    # the same draws as the G turn leave the RNG where it was
+                    rng_after = state.rng.get_state()
+                    state.rng.set_state(rng_before)
+                    with torch.no_grad():
+                        recomputed, wav, _, _ = _generator_turn(gen, disc, batch, hop,
+                                                                state.rng, False, mesh)
+                    wav_hat = recomputed["wav_hat"]
+                    state.rng.set_state(rng_after)
+                d_loss, d_log = disc.forward_disc(wav.detach(), wav_hat.detach(), mesh)
+                d_grads = torch.autograd.grad(d_loss, state.d_opt.params, allow_unused=True)
+                if mesh is not None:
+                    d_grads = all_reduce_grads(d_grads, mesh)
+            with tracing.span("train/d_update"):
+                d_gnorm = state.d_opt.update(d_grads)
         else:
             zero = torch.zeros((), device=wav_hat.device)
             d_loss, d_log, d_gnorm = zero, {"loss_mp": zero, "loss_mrd": zero}, zero

@@ -45,7 +45,6 @@ from typing import Iterable, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..config import ExperimentConfig, to_dict
 from ..parallel.mesh import (
@@ -56,6 +55,7 @@ from ..parallel.mesh import (
     reduce_logs,
     replicate_state,
 )
+from ..utils import tracing
 from ..utils.device import resolve_device
 from ..utils.pylogger import get_pylogger
 from .checkpoint import (
@@ -227,10 +227,13 @@ class Trainer:
             ) -> TrainState:
         """Train until `max_steps` (default: the config's). `profile_steps=
         (start, stop)` traces those steps with torch.profiler into
-        out_dir/profile/trace.json, where the spans `trainer/segment` (host
-        segment sampling and slicing) and `trainer/to_device` (the copy to
-        the device) mark the loop's host work. A loader with a `cache` runs
-        the cached step (`_cached_train_step`), whose spans are the same.
+        out_dir/profile/trace.json, where the spans `train/segment` (host
+        segment sampling and slicing) and `train/to_device` (the copy to
+        the device), "optispeech/train/..." in the trace, mark the loop's
+        host work beside the step's own (`training/step.py`). The spans are
+        `utils/tracing.py`'s: they cost nothing while no profiler runs. A
+        loader with a `cache` runs the cached step (`_cached_train_step`),
+        whose spans are the same.
         In a group only rank 0 traces."""
         cfg = self.cfg
         max_steps = 1 if fast_dev_run else (max_steps or cfg.max_steps)
@@ -270,9 +273,9 @@ class Trainer:
                     if "idx" in batch:
                         logs = self._cached_train_step(state, batch, step)
                     else:
-                        with record_function("trainer/segment"):
+                        with tracing.span("train/segment"):
                             host_batch = self._segment_batch(self._device_batch(batch), step)
-                        with record_function("trainer/to_device"):
+                        with tracing.span("train/to_device"):
                             device_batch = self._to_device(host_batch)
                         logs = self.train_step(state, device_batch)
                     if profiler is not None and step == profile_steps[1]:
@@ -528,10 +531,10 @@ class Trainer:
         """One step over a DeviceCacheLoader's light batch: the segment starts
         of `_segment_batch`'s stream, shipped with the item indices as one
         (B, 2) int32 tensor; the batch is gathered on the device."""
-        with record_function("trainer/segment"):
+        with tracing.span("train/segment"):
             _, start = self._segment_starts(light["mel_lengths"], light["t_mel"], step)
             idx_start = np.stack([light["idx"], start], axis=1).astype(np.int32)
-        with record_function("trainer/to_device"):
+        with tracing.span("train/to_device"):
             idx_start = torch.from_numpy(idx_start).to(self.device)
         return self._cached_step(state, idx_start, t_text=light["t_text"], t_mel=light["t_mel"])
 

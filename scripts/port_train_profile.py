@@ -13,7 +13,8 @@ time per kernel and the device-busy share of the wall.
 Then the loop around the step: `Trainer.fit` over chip_smoke.py phase 10's
 synthetic corpus for 4 steps with the 4th traced (`profile_steps`; the
 first three each meet a new batch shape or an epoch's first batch): the
-host spans `trainer/segment` and `trainer/to_device`, the traced window's
+host spans `train/segment` and `train/to_device` (`optispeech/train/...`
+in the trace), the traced window's
 wall and the device's busy share of it, and the collation of one batch,
 which the loader runs on its prefetch thread. `--bf16` runs both with the
 generator in bf16 (`train_args.compute_dtype: bfloat16`). Needs a card.
@@ -146,12 +147,12 @@ def trainer_loop(dtype) -> int:
               if e.get("ph") == "X"]
     spans = {name: [e["dur"] / 1e3 for e in events if e["name"] == name
                     and e.get("cat") == "user_annotation"]
-             for name in ("trainer/segment", "trainer/to_device")}
+             for name in ("optispeech/train/segment", "optispeech/train/to_device")}
     kernels = [(e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") == "kernel"]
     if not kernels or not all(spans.values()):
         print("the trace holds no kernels or no trainer spans: the loop's breakdown not measured")
         return 1
-    start = min(e["ts"] for e in events if e["name"] == "trainer/segment")
+    start = min(e["ts"] for e in events if e["name"] == "optispeech/train/segment")
     end = max(e["ts"] + e["dur"] for e in events)
     window_ms = (end - start) / 1e3
     device_ms = busy_ms(kernels) / 1e3
