@@ -173,7 +173,7 @@ class ScaledSinusoidalEmbedding(nn.Module):
         half = self.dim // 2
         device = self.scale.device
         freq_seq = torch.arange(half, dtype=torch.float32, device=device) / half
-        inv_freq = torch.pow(torch.tensor(self.theta, dtype=torch.float32, device=device), -freq_seq)
+        inv_freq = torch.pow(float(self.theta), -freq_seq)  # a scalar base: no host-to-device copy
         pos = torch.arange(seq_len, dtype=torch.float32, device=device)
         emb = pos[:, None] * inv_freq[None, :]
         return torch.cat([emb.sin(), emb.cos()], dim=-1) * self.scale
