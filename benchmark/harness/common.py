@@ -2,15 +2,17 @@
 
 Everything a cell needs is found by name: `workloads/<cell>.json` names its
 configuration (`configs/<config>.json`) and its traffic kind
-(`traffic/<kind>.py`); `BENCHMARK.json` at the checkout's root says which
-metrics the cell reports; each per-layer metric is read by
-`metrics/<metric>.py`.
+(`traffic/<kind>.py`); a configuration names its plain reference
+(`reference/<file>`, `generator.py` unless it says otherwise);
+`BENCHMARK.json` at the checkout's root says which metrics the cell reports;
+each per-layer metric is read by `metrics/<metric>.py`.
 """
 
 import contextlib
 import importlib.util
 import json
 import os
+import re
 import sys
 import time
 from dataclasses import dataclass
@@ -62,6 +64,22 @@ def load_module(kind: str, name: str):
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def reference_generator(cfg: dict, device):
+    """The configuration's plain reference generator, built on `device`:
+    the `Generator` of `reference/<file>`, the file named by the
+    configuration's `reference` key (default `generator.py`), built from its
+    `generator` block. Its weights are torch's until `harness.weights` draws
+    them from a seed."""
+    import torch
+
+    file = cfg.get("reference", "generator.py")
+    if not re.fullmatch(r"[A-Za-z_][A-Za-z0-9_]*\.py", file):
+        raise ValueError(f"reference {file!r}: a file name under benchmark/reference/")
+    module = importlib.import_module(f"reference.{file[:-3]}")
+    with torch.device(device):
+        return module.Generator(cfg["config"]["generator"])
 
 
 def cell_metrics(cell: str) -> tuple[list[dict], list[dict]]:

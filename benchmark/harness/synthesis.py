@@ -3,7 +3,7 @@ duration factor drawn from the seed's model, and the spans of a traced run."""
 
 import numpy as np
 
-from .common import program_config, reference_mode
+from .common import program_config, reference_generator, reference_mode
 from .weights import seeded_state_dict
 
 
@@ -14,10 +14,8 @@ def build_models(ctx):
     import torch
 
     from optispeech_tpu_torch.models.optispeech import OptiSpeech
-    from reference.generator import Generator
 
-    with torch.device(ctx.device):
-        ref = Generator(ctx.config["config"]["generator"]).eval()
+    ref = reference_generator(ctx.config, ctx.device).eval()
     state = seeded_state_dict(ref, ctx.seed, ctx.device)
     dtype = torch.bfloat16 if ctx.control else torch.float32
     prog = OptiSpeech(program_config(ctx.config), device=ctx.device, state_dict=state,
@@ -69,8 +67,9 @@ def pick_d_factor(raw: np.ndarray, lengths: np.ndarray, frames_per_token: float,
 
 def frame_rate_blocks(generator, gen_cfg: dict) -> list:
     """The ConvNeXt blocks that run at frame rate: the decoder's, where it
-    is a ConvNeXt stack, and the vocoder trunk's."""
-    blocks = list(generator.vocoder.backbone.convnext)
+    is a ConvNeXt stack, and the vocoder trunk's, where the vocoder has one
+    (WaveNeXt's `backbone.convnext`); none for a vocoder without."""
+    blocks = list(getattr(getattr(generator.vocoder, "backbone", None), "convnext", []))
     if gen_cfg["decoder"]["kind"] == "convnext":
         blocks = list(generator.decoder.convnext) + blocks
     return blocks
@@ -78,7 +77,8 @@ def frame_rate_blocks(generator, gen_cfg: dict) -> list:
 
 def install_spans(spans, generator, gen_cfg: dict) -> None:
     """Spans of the synthesis layers: `decode` (L3), the decoder backbone
-    (L2), every frame-rate ConvNeXt block (L0's B1, with its call shapes)."""
+    (L2), every frame-rate ConvNeXt block (L0's B1, with its call shapes;
+    none where the generator has no such block)."""
     spans.around_method(generator, "decode", "decode")
     spans.around_module(generator.decoder, "decoder")
     for block in frame_rate_blocks(generator, gen_cfg):

@@ -1,11 +1,15 @@
 """The traced run: spans recorded from the benchmark's own files, the
 profiler's device events, and what the per-layer readers are given.
 
-Spans are `torch.profiler.record_function` ranges that module hooks and
-method wrappers open and close around the program's calls (`Spans`). A
-span's device time is the time of the kernels launched from inside it: each
-launch (a CUDA runtime or low-level API call on the span's thread, within its host
-interval) is matched to its kernel by the profiler's correlation id.
+Spans are `torch.profiler.record_function` ranges: the benchmark's own
+(`bench/<name>`), which module hooks and method wrappers open and close
+around the program's calls (`Spans`), and the program's (`optispeech/<name>`,
+`optispeech_tpu_torch.utils.tracing`, on while the profiler runs). A span's
+device time is the time of the kernels launched from inside it: each launch
+(a CUDA runtime or low-level API call on the span's thread, within its host
+interval) is matched to its kernel by the profiler's correlation id. The
+benchmark's spans are keyed by `<name>`, the program's by their full
+`optispeech/<name>`, so that the two never add into one key.
 """
 
 import bisect
@@ -14,6 +18,7 @@ from collections import defaultdict
 from dataclasses import dataclass, field
 
 SPAN_PREFIX = "bench/"
+PROGRAM_PREFIX = "optispeech/"  # the program's own ranges, keyed by their full names
 # a host event that launches device work: a CUDA runtime or low-level API call
 LAUNCH = re.compile(r"^cu(da)?[A-Z]")
 
@@ -74,8 +79,8 @@ class TraceData:
 
     window_s: float
     busy_s: float
-    span_device_s: dict
-    span_calls: dict
+    span_device_s: dict  # span key -> device seconds (keys as `analyse` gives them)
+    span_calls: dict  # span key -> calls within the window
     span_shapes: dict
     kernels: dict  # device op name -> seconds
     idle_gaps: dict  # host op at the gap's middle -> idle seconds
@@ -160,9 +165,14 @@ def analyse(events, w0, w1) -> TraceData:
         starts = [s for s, _ in launches.get(tid, [])]
         for e in evs:
             name = e.name()
-            if not name.startswith(SPAN_PREFIX) or e.start_ns() < w0 or e.end_ns() > w1:
+            if name.startswith(SPAN_PREFIX):
+                key = name[len(SPAN_PREFIX):]
+            elif name.startswith(PROGRAM_PREFIX):
+                key = name
+            else:
                 continue
-            key = name[len(SPAN_PREFIX):]
+            if e.start_ns() < w0 or e.end_ns() > w1:
+                continue
             span_calls[key] += 1
             lo = bisect.bisect_left(starts, e.start_ns())
             hi = bisect.bisect_right(starts, e.end_ns())

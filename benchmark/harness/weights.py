@@ -7,9 +7,16 @@ JAX original of OptiSpeech initialises its generator:
 - the token table: normal, std dim ** -0.5;
 - the Conformer's pos_bias_u / pos_bias_v: Xavier uniform;
 - every other conv and linear weight: LeCun normal (truncated normal, std
-  sqrt(1 / fan_in) / 0.8796);
+  sqrt(1 / fan_in) / 0.8796); a transposed conv's fan-in is in_channels x
+  kernel_size, as flax's ConvTranspose reckons it;
 - biases 0, LayerNorm weights 1; layer scale and the position scale keep the
   constants the modules were built with.
+
+A reference file may give a module a `weight_init = (kind, scale)`
+attribute ("trunc", "normal" or "uniform": a standard draw of that kind
+times `scale`): it sets the draw of every conv, transposed conv and linear
+weight inside that module, the innermost such module's winning over the
+rules above (HiFi-GAN's published init is ("normal", 0.01)).
 
 The draws are made in three calls on the device's generator (one truncated
 normal, one normal, one uniform over every parameter of that kind), then
@@ -24,6 +31,8 @@ from torch import nn
 
 # std of a standard normal truncated to [-2, 2]
 TRUNC_STD = 0.87962566103423978
+KINDS = ("trunc", "normal", "uniform")  # the draws, in the order they are made
+LAYERS = (nn.Conv1d, nn.ConvTranspose1d, nn.Linear)  # a weight drawn, a bias zeroed
 
 
 def _plan(model: nn.Module):
@@ -45,11 +54,24 @@ def _plan(model: nn.Module):
             for p in (m.pos_bias_u, m.pos_bias_v):
                 fan_out, fan_in = p.shape
                 explicit[id(p)] = ("uniform", math.sqrt(6.0 / (fan_in + fan_out)))
+    for m in model.modules():  # parents before children: the innermost wins
+        init = getattr(m, "weight_init", None)
+        if init is None:
+            continue
+        if len(init) != 2 or init[0] not in KINDS:
+            raise ValueError(f"{type(m).__name__}.weight_init: (kind in {KINDS}, scale), "
+                             f"not {init!r}")
+        for layer in m.modules():
+            if isinstance(layer, LAYERS):
+                explicit[id(layer.weight)] = (init[0], float(init[1]))
     draws, ones, zeros = [], [], []
     for m in model.modules():
-        if isinstance(m, (nn.Conv1d, nn.Linear)):
+        if isinstance(m, LAYERS):
             w = m.weight
-            kind, scale = explicit.get(id(w), ("trunc", math.sqrt(1.0 / w[0].numel()) / TRUNC_STD))
+            fan_in = w[0].numel()
+            if isinstance(m, nn.ConvTranspose1d):  # weight (in, out / groups, k)
+                fan_in = w.shape[0] * w.shape[2]
+            kind, scale = explicit.get(id(w), ("trunc", math.sqrt(1.0 / fan_in) / TRUNC_STD))
             draws.append((kind, w, scale))
             if m.bias is not None:
                 zeros.append(m.bias)
@@ -70,7 +92,7 @@ def init_weights(model: nn.Module, seed: int, device) -> None:
     g = torch.Generator(device=device)
     g.manual_seed(int(seed))
     draws, ones, zeros = _plan(model)
-    for kind in ("trunc", "normal", "uniform"):
+    for kind in KINDS:
         params = [(p, s) for k, p, s in draws if k == kind]
         if not params:
             continue

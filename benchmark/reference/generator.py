@@ -326,7 +326,14 @@ class Generator(nn.Module):
         self.pitch_predictor = ValuePredictor(dim, g["pitch_predictor"])
         self.energy_predictor = ValuePredictor(dim, g["energy_predictor"])
         self.alignment_module = AlignmentModule(dim, feats["n_feats"])
-        self.vocoder = WaveNeXt(dim, g["vocoder"], feats["n_fft"], self.hop)
+        self.vocoder = self.make_vocoder(g)
+
+    def make_vocoder(self, g):
+        """WaveNeXt. A reference file whose configuration has another
+        vocoder subclasses this Generator and overrides this method; the
+        vocoder takes (B, T, dim) frames and a (B, T) padding mask and gives
+        (B, T * hop) samples."""
+        return WaveNeXt(g["dim"], g["vocoder"], g["features"]["n_fft"], self.hop)
 
     def encode(self, x, x_lengths, d_factor, p_factor, e_factor):
         """Token rate: hidden states, integer durations, pitch and energy."""

@@ -28,7 +28,7 @@ def test_no_file_imports_jax():
 
 
 def test_reference_imports_nothing_of_the_program():
-    for f in (BENCH / "reference").rglob("*.py"):
+    for f in [*(BENCH / "reference").rglob("*.py"), *(BENCH / "tests" / "reference").rglob("*.py")]:
         assert not {"optispeech_tpu_torch"} & set(_imports(f)), f
 
 

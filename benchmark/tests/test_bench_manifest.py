@@ -1,6 +1,7 @@
 """BENCHMARK.json against the files it names: every cell has its workload
-and configuration file, every per-layer metric its reader, and every
-metric's cells report what it moves."""
+and configuration file, every configuration its reference file, every
+per-layer metric its reader, and every metric's cells report what it
+moves."""
 
 import json
 import re
@@ -33,6 +34,8 @@ def test_cells_find_their_files():
         cfg = json.loads((BENCH.parent / configs[w["config"]]["file"]).read_text())
         assert cfg["source"] == configs[w["config"]]["source"]
         assert cfg["reduced"] == configs[w["config"]]["reduced"]
+        # the optional `reference` key: a file of reference/, generator.py by default
+        assert (BENCH / "reference" / cfg.get("reference", "generator.py")).is_file()
 
 
 def test_metrics_have_readers_and_cells():
@@ -47,3 +50,12 @@ def test_metrics_have_readers_and_cells():
     for cell in cells:
         assert any(cell in m.get("workloads", cells) for m in MANIFEST["per_layer"])
         assert sum(cell in m.get("workloads", cells) for m in e2e.values()) >= 2
+
+
+def test_vocoder_reader_in_the_offline_cells():
+    entry = next(m for m in MANIFEST["per_layer"] if m["name"] == "vocoder.device_ms")
+    assert entry == {"name": "vocoder.device_ms", "unit": "ms", "better": "lower",
+                     "source": "device_trace", "layer": "L2 modules", "moves": "audio_s_per_s",
+                     "workloads": ["convnext.offline", "conformer.offline"]}
+    layers = {m["name"]: m["layer"] for m in MANIFEST["per_layer"]}
+    assert layers["decoder.device_ms"] == entry["layer"]

@@ -90,12 +90,12 @@ class Cell:
     def _reference_models(self):
         import torch
 
-        from reference.generator import Generator
+        from harness.common import reference_generator
         from reference.training import Discriminator
 
         c = self.cfg["config"]
+        gen = reference_generator(self.cfg, self.ctx.device)
         with torch.device(self.ctx.device):
-            gen = Generator(c["generator"])
             disc = Discriminator(c["discriminator"], c["generator"]["features"])
         return gen, disc
 
